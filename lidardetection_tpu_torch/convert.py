@@ -1,4 +1,5 @@
-"""flax variables of the JAX PointPillar -> this package's ``state_dict``.
+"""flax variables of the JAX PointPillar or SECOND -> this package's
+``state_dict``.
 
 Input: the flax ``params`` and ``batch_stats`` trees as nested dicts of
 numpy arrays (``jax.device_get`` of the JAX package's variables); no JAX is
@@ -6,6 +7,9 @@ needed here. Names map one to one except:
 
   * ``ConvBNReLU_<n>`` (creation order in BaseBEVBackbone) -> ``units.<n>``,
     its ``MaskedBatchNorm_0`` -> ``bn``;
+  * ``SparseConvLayer_<n>`` -> ``convs.<n>`` and ``SparseBasicBlock_<n>`` ->
+    ``blocks.<n>`` (creation order in VoxelBackBone8x and inside a block);
+    a sparse layer's ``kernel`` (K, C_in, C_out) keeps its name and layout;
   * ``Conv_0/kernel`` HWIO -> ``weight`` OIHW;
   * ``ConvTranspose_0/kernel`` HWIO -> flipped in both spatial axes, then
     ``weight`` (I, O, H, W): flax's transposed convolution does not flip
@@ -27,11 +31,16 @@ def _flatten(tree, prefix=()):
             yield prefix + (key,), np.asarray(value)
 
 
+_SCOPES = {'ConvBNReLU': 'units', 'SparseConvLayer': 'convs',
+           'SparseBasicBlock': 'blocks'}
+
+
 def _convert(path, value):
     parts = []
     for key in path[:-1]:
-        if key.startswith('ConvBNReLU_'):
-            parts += ['units', key.split('_')[1]]
+        scope, _, index = key.rpartition('_')
+        if scope in _SCOPES:
+            parts += [_SCOPES[scope], index]
         elif key == 'MaskedBatchNorm_0':
             parts.append('bn')
         elif key not in ('Conv_0', 'ConvTranspose_0'):

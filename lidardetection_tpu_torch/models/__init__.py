@@ -12,7 +12,7 @@ def build_network(model_cfg, num_class, dataset_info, seed=0):
     name = model_cfg['NAME']
     if name in NOT_PORTED:
         raise not_ported(name)
-    if name != 'PointPillar':
+    if name not in ('PointPillar', 'SECONDNet'):
         raise KeyError(f'unknown detector {name}')
     generator = torch.Generator().manual_seed(seed)
     return Detector3D(model_cfg, num_class, dataset_info,

@@ -1,5 +1,5 @@
-"""PillarVFE, eval single-PFN path (lidardetection_tpu/models/backbones_3d/
-vfe.py:58-223).
+"""Voxel feature encoders: MeanVFE and PillarVFE's eval single-PFN path
+(lidardetection_tpu/models/backbones_3d/vfe.py:17-26 and :58-223).
 
 Batch layout: voxels (B, V, P, 4) float32 at fixed capacity,
 voxel_num_points (B, V) int32 (0 marks an empty slot), voxel_coords
@@ -17,6 +17,15 @@ from torch import nn
 
 from ...ops.vfe_cuda import pillar_vfe
 from ..layers import BN_EPS, lecun_normal_
+
+
+class MeanVFE(nn.Module):
+    """Mean of the points of each voxel -> ``voxel_features`` (B, V, C)."""
+
+    def forward(self, batch):
+        voxels = batch['voxels']  # (B, V, P, C)
+        denom = batch['voxel_num_points'].to(voxels.dtype).clamp(min=1.0)
+        return {**batch, 'voxel_features': voxels.sum(dim=2) / denom[..., None]}
 
 
 class PillarVFE(nn.Module):

@@ -1,24 +1,23 @@
 """Detector assembly (lidardetection_tpu/models/detectors/detector3d.py), the
-PointPillar slots only: vfe -> map_to_bev -> backbone_2d -> dense_head.
+single-stage slots: vfe -> [backbone_3d] -> map_to_bev -> backbone_2d ->
+dense_head (PointPillar without a 3D backbone, SECOND with one).
 
-Every other slot, and training, raises NotImplementedError naming the
-ROADMAP.md item that will port it.
+Every other slot or module, and training, raises NotImplementedError
+naming the ROADMAP.md item that will port it.
 """
 
 import torch
 from torch import nn
 
 from ..backbones_2d.bev_backbone import BaseBEVBackbone
-from ..backbones_2d.map_to_bev import PointPillarScatter
-from ..backbones_3d.vfe import PillarVFE
+from ..backbones_2d.map_to_bev import HeightCompression, PointPillarScatter
+from ..backbones_3d.spconv_backbone import VoxelBackBone8x
+from ..backbones_3d.vfe import MeanVFE, PillarVFE
 from ..dense_heads.anchor_head import AnchorHeadSingle
 from ..layers import TRAINING_NOT_PORTED
 
 NOT_PORTED = {  # detector or module name -> ROADMAP.md queue 1 item
-    'SECONDNet': 'SECOND', 'PVRCNN': 'PV-RCNN', 'PartA2Net': 'Part-A2',
-    'PointRCNN': 'PointRCNN',
-    'VoxelBackBone8x': 'SECOND', 'VoxelResBackBone8x': 'SECOND',
-    'MeanVFE': 'SECOND', 'HeightCompression': 'SECOND',
+    'PVRCNN': 'PV-RCNN', 'PartA2Net': 'Part-A2', 'PointRCNN': 'PointRCNN',
     'VoxelSetAbstraction': 'PV-RCNN', 'PVRCNNHead': 'PV-RCNN',
     'PointHeadSimple': 'PV-RCNN',
     'UNetV2': 'Part-A2', 'PartA2FCHead': 'Part-A2',
@@ -55,26 +54,46 @@ class Detector3D(nn.Module):
         pc_range = tuple(dataset_info['point_cloud_range'])
         voxel_size = tuple(dataset_info['voxel_size'])
 
-        for slot in ('BACKBONE_3D', 'PFE', 'POINT_HEAD', 'ROI_HEAD'):
+        for slot in ('PFE', 'POINT_HEAD', 'ROI_HEAD'):
             if model_cfg.get(slot):
                 raise not_ported(model_cfg[slot]['NAME'])
-        names = {slot: model_cfg[slot]['NAME'] for slot in
-                 ('VFE', 'MAP_TO_BEV', 'BACKBONE_2D', 'DENSE_HEAD')}
-        for slot, want in (('VFE', 'PillarVFE'),
-                           ('MAP_TO_BEV', 'PointPillarScatter'),
-                           ('BACKBONE_2D', 'BaseBEVBackbone'),
+        for slot, want in (('BACKBONE_2D', 'BaseBEVBackbone'),
                            ('DENSE_HEAD', 'AnchorHeadSingle')):
-            if names[slot] != want:
-                raise not_ported(names[slot])
+            if model_cfg[slot]['NAME'] != want:
+                raise not_ported(model_cfg[slot]['NAME'])
+        num_point_features = dataset_info['num_point_features']
+        bev_channels = model_cfg['MAP_TO_BEV']['NUM_BEV_FEATURES']
 
-        self.vfe = PillarVFE(model_cfg['VFE'],
-                             dataset_info['num_point_features'], voxel_size,
-                             pc_range, dtype=dtype, generator=generator)
-        self.map_to_bev = PointPillarScatter(
-            grid_size, model_cfg['MAP_TO_BEV']['NUM_BEV_FEATURES'])
+        name = model_cfg['VFE']['NAME']
+        if name == 'MeanVFE':
+            self.vfe = MeanVFE()
+        elif name == 'PillarVFE':
+            self.vfe = PillarVFE(model_cfg['VFE'], num_point_features,
+                                 voxel_size, pc_range, dtype=dtype,
+                                 generator=generator)
+        else:
+            raise not_ported(name)
+
+        self.backbone_3d = None
+        if model_cfg.get('BACKBONE_3D'):
+            name = model_cfg['BACKBONE_3D']['NAME']
+            if name not in ('VoxelBackBone8x', 'VoxelResBackBone8x'):
+                raise not_ported(name)
+            self.backbone_3d = VoxelBackBone8x(
+                model_cfg['BACKBONE_3D'], num_point_features, grid_size,
+                dtype=dtype, residual=name == 'VoxelResBackBone8x',
+                generator=generator)
+
+        name = model_cfg['MAP_TO_BEV']['NAME']
+        if name == 'PointPillarScatter':
+            self.map_to_bev = PointPillarScatter(grid_size, bev_channels)
+        elif name == 'HeightCompression':
+            self.map_to_bev = HeightCompression(bev_channels)
+        else:
+            raise not_ported(name)
+
         self.backbone_2d = BaseBEVBackbone(
-            model_cfg['BACKBONE_2D'],
-            model_cfg['MAP_TO_BEV']['NUM_BEV_FEATURES'], dtype=dtype,
+            model_cfg['BACKBONE_2D'], bev_channels, dtype=dtype,
             generator=generator)
         head_cfg = model_cfg['DENSE_HEAD']
         self.dense_head = AnchorHeadSingle(
@@ -86,7 +105,8 @@ class Detector3D(nn.Module):
     def forward(self, batch):
         if self.training:
             raise NotImplementedError(TRAINING_NOT_PORTED)
-        for module in (self.vfe, self.map_to_bev, self.backbone_2d,
-                       self.dense_head):
-            batch = module(batch)
+        for module in (self.vfe, self.backbone_3d, self.map_to_bev,
+                       self.backbone_2d, self.dense_head):
+            if module is not None:
+                batch = module(batch)
         return batch

@@ -15,7 +15,7 @@ BN_EPS = 1e-3
 
 TRAINING_NOT_PORTED = (
     'training (batch statistics, target assignment, losses) is not ported '
-    'yet: see ROADMAP.md queue 1, "PointPillar train"')
+    'yet: see ROADMAP.md queue 1, "Training"')
 
 
 def lecun_normal_(tensor, fan_in, generator):
@@ -29,15 +29,17 @@ def lecun_normal_(tensor, fan_in, generator):
 class MaskedBatchNorm(nn.Module):
     """BatchNorm with running statistics, folded to ``x * inv + shift``.
 
-    Channels are on dim 1 (NCHW), where `ConvBNReLU` applies it. The
+    Channels are on dim `axis`: 1 (NCHW) where `ConvBNReLU` applies it, -1
+    for the channels-last (B, V, C) rows of the sparse layers. The
     affine is computed in float32 and applied in the input dtype, so a
     bf16 activation is not promoted to float32. Buffers ``mean``/``var`` and
     parameters ``scale``/``bias`` carry the flax names. Eval only: the
     masked batch statistics come with the training slice.
     """
 
-    def __init__(self, features):
+    def __init__(self, features, axis=1):
         super().__init__()
+        self.axis = axis
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer('mean', torch.zeros(features))
@@ -48,7 +50,8 @@ class MaskedBatchNorm(nn.Module):
             raise NotImplementedError(TRAINING_NOT_PORTED)
         inv = torch.rsqrt(self.var + BN_EPS) * self.scale
         shift = self.bias - self.mean * inv
-        shape = (1, -1) + (1,) * (x.dim() - 2)
+        shape = [1] * x.dim()
+        shape[self.axis] = -1
         return x * inv.to(x.dtype).view(shape) + shift.to(x.dtype).view(shape)
 
 

@@ -1,4 +1,4 @@
-"""PointPillar serving: the port's entry point.
+"""Serving (PointPillar and SECOND): the port's entry point.
 
 ``Detector(cfg_file, device="cuda", seed=0, state_dict=None)`` builds the
 detector of a YAML config (or of a loaded config) on the card; parameters
@@ -13,7 +13,7 @@ raises when CUDA is absent.
 CLI, answering requests on synthetic scenes made from ``--seed``:
 
     python -m lidardetection_tpu_torch.serve \\
-        --cfg_file tools/cfgs/kitti_models/pointpillar.yaml --num_requests 8
+        --cfg_file tools/cfgs/kitti_models/second.yaml --num_requests 8
 """
 
 import argparse

@@ -1,4 +1,5 @@
-"""flax -> PyTorch weight conversion, and BaseBEVBackbone against flax's."""
+"""flax -> PyTorch weight conversion, BaseBEVBackbone against flax's, and
+the SECOND tree's names."""
 
 import flax.linen as fnn
 import jax
@@ -10,7 +11,12 @@ import torch.nn.functional as F
 from lidardetection_tpu.models.backbones_2d.bev_backbone import (
     BaseBEVBackbone as JaxBaseBEVBackbone,
 )
+from lidardetection_tpu.models.backbones_3d.spconv_backbone import (
+    VoxelBackBone8x as JaxVoxelBackBone8x,
+)
+from lidardetection_tpu_torch.config import cfg_from_yaml_file, dataset_info
 from lidardetection_tpu_torch.convert import flax_to_state_dict
+from lidardetection_tpu_torch.models import build_network
 from lidardetection_tpu_torch.models.backbones_2d.bev_backbone import BaseBEVBackbone
 
 
@@ -81,3 +87,45 @@ def test_bev_backbone_matches_flax(cfg):
         if key.startswith('spatial_features_'):
             np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
                                        rtol=0, atol=1e-4, err_msg=key)
+
+
+@pytest.mark.parametrize('name', ['VoxelBackBone8x', 'VoxelResBackBone8x'])
+def test_second_tree_loads_strict(name):
+    """A SECOND flax tree (its 3D backbone initialized by the JAX module on
+    a tiny table, the other scopes as the PointPillar tests convert them)
+    fills every parameter and buffer of the port's detector, and the
+    sparse kernels keep their (K, C_in, C_out) layout."""
+    cfg = cfg_from_yaml_file('tools/cfgs/kitti_models/second.yaml')
+    cfg.MODEL.BACKBONE_3D.NAME = name
+    cfg.MODEL.BACKBONE_2D.LAYER_NUMS = [1, 1]
+    model = build_network(cfg.MODEL, 3, dataset_info(cfg.DATA_CONFIG), seed=1)
+    own = model.state_dict()
+
+    coords = np.full((1, 8, 3), -1, np.int32)
+    coords[0, :3] = [[0, 0, 0], [1, 1, 1], [2, 3, 1]]
+    jax_bb = JaxVoxelBackBone8x(model_cfg={}, input_channels=4,
+                                grid_size=(16, 16, 40),
+                                residual=name == 'VoxelResBackBone8x')
+    variables = jax.device_get(jax_bb.init(jax.random.PRNGKey(0), {
+        'voxel_features': np.ones((1, 8, 4), np.float32),
+        'voxel_coords': coords, 'num_voxels': np.asarray([3], np.int32)}))
+    rng = np.random.RandomState(0)
+    state = flax_to_state_dict(
+        {'backbone_3d': _randomize_bn(variables['params'], rng)},
+        {'backbone_3d': _randomize_bn(variables['batch_stats'], rng)})
+    assert set(state) == {k for k in own if k.startswith('backbone_3d.')}
+    n_layers = 19 if name == 'VoxelResBackBone8x' else 12
+    assert sum(k.endswith('.kernel') for k in state) == n_layers
+    down2 = 1 if name == 'VoxelResBackBone8x' else 2  # creation order
+    kernel = variables['params'][f'SparseConvLayer_{down2}']['kernel']
+    np.testing.assert_array_equal(
+        state[f'backbone_3d.convs.{down2}.kernel'].numpy(), kernel)
+    assert kernel.shape == (27, 16, 32)
+
+    state.update({k: v for k, v in own.items()
+                  if not k.startswith('backbone_3d.')})
+    fresh = build_network(cfg.MODEL, 3, dataset_info(cfg.DATA_CONFIG), seed=2)
+    fresh.load_state_dict(state, strict=True)
+    got = fresh.state_dict()
+    for key, value in state.items():
+        assert torch.equal(got[key], value), key

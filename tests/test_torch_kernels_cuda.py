@@ -1,4 +1,4 @@
-"""K1 and K2 CUDA kernels against their plain PyTorch versions on the card.
+"""K1, K2 and K3 CUDA kernels against their plain PyTorch versions on the card.
 
 Marked ``cuda``: without a CUDA device (and nvcc to build csrc/) each test
 skips with its reason. On the card:
@@ -10,6 +10,9 @@ import pytest
 import torch
 
 from lidardetection_tpu_torch.ops.scatter_cuda import scatter_rows, scatter_rows_plain
+from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
+    rulebook_conv, rulebook_conv_plain,
+)
 from lidardetection_tpu_torch.ops.vfe_cuda import pillar_vfe, pillar_vfe_plain
 
 pytestmark = pytest.mark.cuda
@@ -63,3 +66,48 @@ def test_scatter_rows_kernel_matches_plain(device, dtype, c):
     assert scatter_rows.launches == before + 1
     torch.testing.assert_close(got, scatter_rows_plain(feats, keys_t, n_slots),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('k,c_in,c_out', [
+    (27, 4, 16), (27, 16, 32), (27, 64, 64), (3, 64, 128),  # the backbone's
+    (27, 70, 100),  # channel counts that fill no tile
+    (40, 5, 200),   # more offsets than one staged chunk, two column blocks
+])
+def test_rulebook_conv_kernel_matches_plain(device, dtype, k, c_in, c_out):
+    rng = np.random.RandomState(k + c_in)
+    b, v_in, v_out = 3, 700, 1000
+    rule = rng.randint(0, v_in, (b, v_out, k)).astype(np.int32)  # any order
+    rule[rng.rand(b, v_out, k) < 0.5] = v_in
+    rule[0, :4, :3] = [-1, v_in + 5, 2 ** 31 - 1]  # all misses
+    valid = rng.rand(b, v_out) < 0.7
+    valid[1, 200:] = False  # whole tiles without a valid row
+    f = torch.from_numpy(rng.randn(b, v_in, c_in)).to(device, dtype)
+    w = torch.from_numpy(rng.randn(k, c_in, c_out) * 0.1).to(device, dtype)
+    rule_t = torch.from_numpy(rule).to(device)
+    for mask in (torch.from_numpy(valid).to(device), None):
+        before = rulebook_conv.launches
+        got = rulebook_conv(f, rule_t, w, mask)
+        torch.cuda.synchronize()
+        assert rulebook_conv.launches == before + 1
+        want = rulebook_conv_plain(f, rule_t, w, mask)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        if mask is not None:
+            assert (got[~mask] == 0).all()
+        # the same exact products, summed in f32 in another order
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+def test_rulebook_conv_rejects_what_the_kernel_does_not_take(device):
+    f = torch.zeros((1, 8, 4), device=device)
+    rule = torch.zeros((1, 8, 27), dtype=torch.int32, device=device)
+    w = torch.zeros((27, 4, 16), device=device)
+    before = rulebook_conv.launches
+    for args in ((f.half(), rule, w.half()), (f, rule.long(), w),
+                 (f, rule, w.bfloat16()), (f, rule, w.cpu()),
+                 (f.transpose(1, 2).contiguous().transpose(1, 2), rule, w),
+                 (f, rule, w, torch.ones((1, 8), device=device))):
+        with pytest.raises(ValueError):
+            rulebook_conv(*args)
+    assert rulebook_conv.launches == before
