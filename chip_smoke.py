@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: PointPillar and
-SECOND, serving and training.
+SECOND, serving and training; PV-RCNN serving.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -38,8 +38,21 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      card (only the kernels differ: every gradient leaf within 1e-3) and on
      the CPU (the dense library differs too: looser, the sparse backbone's
      leaves within 1e-2), same weights and batch, both detectors;
- 11. one request and one training step of each detector under
-     torch.profiler (idle share, top kernels), after every timed phase.
+ 11. serve requests through ``serve.Detector`` on the full
+     tools/cfgs/kitti_models/pv_rcnn.yaml (bf16, 2048 keypoints, 40000
+     voxels, 131072 raw points of capacity), launch counts set to 0 before
+     every request and checked after it (12 K3, 1 K2, 5 K5); the forward
+     split by module, FPS, the five ball queries and the proposal layer
+     apart;
+ 12. K5 against its plain version on the card on the five sources' (table,
+     runs, centres) of a real request at B = 1 and B = 2, with the original
+     indices shuffled, with a third of the centres invalid, and on a cloud
+     whose cells hold more than the 64 cap: bit-equal; its times per source;
+ 13. one f32 PV-RCNN request on the card with the kernels against the same
+     request on the card with the plain versions (only the kernels differ);
+ 14. one request of each detector and one training step of each trained
+     detector under torch.profiler (idle share, top kernels), after every
+     timed phase.
 The line before the last is the kernels' JSON, preceded by the card's name
 and power limit; the last line is the device JSON.
 """
@@ -54,9 +67,11 @@ import numpy as np
 
 CFG = 'tools/cfgs/kitti_models/pointpillar.yaml'
 CFG_SECOND = 'tools/cfgs/kitti_models/second.yaml'
+CFG_PVRCNN = 'tools/cfgs/kitti_models/pv_rcnn.yaml'
 SEED = 0
 N_REQUESTS = 3               # PointPillar
 N_REQUESTS_SECOND = 3
+N_REQUESTS_PVRCNN = 3
 TRAIN_BATCH = 4              # OPTIMIZATION.BATCH_SIZE_PER_GPU of both yamls
 TRAIN_WARMUP, TRAIN_STEPS = 2, 3
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
@@ -394,12 +409,14 @@ def stage_counts(out):
 
 def serve_phase(torch, det, clouds, per_request):
     """The main path: one request per cloud; every launch count set to 0
-    just before and read just after. `per_request` maps each kernel's
-    wrapper to the launches one request must make."""
-    for k in per_request:
-        k.launches = 0
+    just before each request and read just after it. `per_request` maps
+    each kernel's wrapper to the launches one request must make. Returns
+    the launches of the run."""
+    total = {k.__name__: 0 for k in per_request}
     latency, forward, stages = [], [], []
     for i, points in enumerate(clouds):
+        for k in per_request:
+            k.launches = 0
         t0 = time.perf_counter()
         batch = det.make_batch([points])
         t1 = time.perf_counter()
@@ -430,27 +447,42 @@ def serve_phase(torch, det, clouds, per_request):
               f'request {i}: finite boxes')
         check(live > 0 and n > 0, f'request {i}: live candidates and detections')
         for k, each in per_request.items():
-            check(k.launches == each * (i + 1),
-                  f'{k.__name__} launched {each} times per request '
-                  f'({k.launches} after {i + 1})')
+            check(k.launches == each, f'request {i}: {k.__name__} launched '
+                  f'{k.launches} times, expected {each}')
+            total[k.__name__] += k.launches
     print('p50 host clock, ms: make_batch {:.2f}, forward {:.2f}, '
           'postprocess {:.2f}'.format(*np.median(stages, axis=0)), flush=True)
     print(json.dumps({'config': det.cfg['MODEL']['NAME'],
                       'requests': len(clouds),
                       'p50_latency_ms': float(np.median(latency)),
                       'p50_forward_ms': float(np.median(forward))}), flush=True)
-    return {k.__name__: k.launches for k in per_request}
+    return total
 
 
-def forward_split(torch, det, points, repeats=3):
+def forward_split(torch, det, points, repeats=3, functions=()):
     """Where a request's forward goes, by module: host clock around each
-    top-level module (and around the sparse layers inside the 3D backbone)
+    top-level module (and around the sparse layers inside the 3D backbone,
+    and around each call of the functions of `functions`, (owner,
+    attribute, labels): the n-th call of a forward is labelled labels[n])
     with the device drained at both ends, median of `repeats`."""
     from lidardetection_tpu_torch.models.backbones_3d.spconv_backbone import (
         SparseConvLayer,
     )
 
     spans, hooks, t0 = {}, [], {}
+    wrapped, calls = [], {}
+
+    def timed(attr, labels, fn):
+        def run(*args, **kwargs):
+            name = labels[calls.get(attr, 0)]
+            calls[attr] = calls.get(attr, 0) + 1
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans[name] = spans.get(name, 0.0) + time.perf_counter() - start
+            return result
+        return run
 
     def watch(name, module):
         def before(m, args):
@@ -468,20 +500,27 @@ def forward_split(torch, det, points, repeats=3):
     for module in det.model.modules():
         if isinstance(module, SparseConvLayer):
             watch('sparse layers', module)
+    for owner, attr, labels in functions:
+        wrapped.append((owner, attr, getattr(owner, attr)))
+        setattr(owner, attr, timed(attr, labels, getattr(owner, attr)))
     runs = []
     try:
         for _ in range(repeats):
             spans.clear()
+            calls.clear()
             det.forward(det.make_batch([points]))
             runs.append(dict(spans))
     finally:
         for hook in hooks:
             hook.remove()
+        for owner, attr, fn in wrapped:
+            setattr(owner, attr, fn)
     med = {k: float(np.median([r[k] for r in runs])) * 1e3 for k in runs[0]}
     if 'sparse layers' in med:
         med['rulebooks and scatter'] = med['backbone_3d'] - med['sparse layers']
     print('forward split, ms (device drained around each module): '
           + ', '.join(f'{k} {v:.2f}' for k, v in med.items()), flush=True)
+    return med
 
 
 def profile_run(torch, what, fn):
@@ -882,6 +921,222 @@ def weight_gradient_phase(torch, trainer, batch, backward_ms):
             'share_of_backward': total['ms'] / backward_ms, 'layers': shapes}
 
 
+def record_ball_selects(run):
+    """run() with K5's inputs recorded: the argument tuples of every
+    ``ball_select`` call the point ops make, in call order, and run()'s
+    result."""
+    from lidardetection_tpu_torch.ops import pointnet2
+
+    calls, real = [], pointnet2.ball_select
+
+    def recorder(*args):
+        calls.append(args)
+        return real(*args)
+
+    pointnet2.ball_select = recorder
+    try:
+        out = run()
+    finally:
+        pointnet2.ball_select = real
+    return calls, out
+
+
+def select_work(torch, args):
+    """K5's live (centre, candidate) pairs, and the bytes and FLOP its bound
+    counts: the distinct table rows the runs cover, each read once (xyz and
+    orig, 16 bytes a row; runs never reach the padding rows past the valid
+    count, and runs of different centres overlap), the centres, the runs and
+    the outputs; 9 FLOP a live pair (3 differences, 3 squares, 2 sums, 1
+    compare)."""
+    xyz, orig, start, end, centers, radii, nsamples, max_run = args
+    b, n = orig.shape
+    m, n_row = start.shape[1:]
+    s = start.long().reshape(b, -1)
+    e = torch.minimum(end, start + max_run).long().reshape(b, -1)
+    live = (e > s).long()
+    pairs = int(((e - s) * live).sum())
+    # +1 where a run starts, -1 where it ends: a row is read where the
+    # running sum is above 0
+    edge = torch.zeros((b, n + 1), dtype=torch.long, device=orig.device)
+    edge.scatter_add_(1, s.clamp(0, n), live)
+    edge.scatter_add_(1, e.clamp(0, n), -live)
+    rows_read = int((edge.cumsum(1)[:, :n] > 0).sum())
+    n_bytes = rows_read * 16 + b * m * 12 + 2 * b * m * n_row * 4 \
+        + b * m * sum(nsamples) * 4
+    return pairs, rows_read, n_bytes, 9 * pairs
+
+
+def select_kernel_phase(torch, det):
+    """K5 against its plain version on the card, bit for bit: the five
+    sources' (table, runs, centres) of a real request at B = 2 (the yaml's
+    batch) and B = 1, the original indices shuffled, a third of the
+    centres invalid, and a cloud whose cells hold more than the 64 cap;
+    then its time per source at one request's shape."""
+    from lidardetection_tpu_torch.ops import pointnet2
+    from lidardetection_tpu_torch.ops.select_cuda import (
+        ball_select, ball_select_plain,
+    )
+
+    clouds = make_clouds(det, 2, SEED + 500)
+    calls, _ = record_ball_selects(lambda: det.forward(det.make_batch(clouds)))
+    sources = det.model.pfe.sa_sources
+    check(len(calls) == len(sources) == 5,
+          f'one K5 call per SA source ({len(calls)} for {sources})')
+    g = torch.Generator(device='cuda').manual_seed(SEED)
+
+    def held(args, what):
+        """Kernel against plain on one case: bit-equal, and the largest
+        |kernel - plain| over entries finite on both sides, plus 1 where one
+        side is -inf and the other not. Returns the error and the number of
+        runs at the cut."""
+        got, want = ball_select(*args), ball_select_plain(*args)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = 0.0
+        for a, b in zip(got, want):
+            both = torch.isfinite(a) & torch.isfinite(b)
+            err = max(err, float(torch.where(both, a - b, 0).abs().max())
+                      + float((torch.isinf(a) != torch.isinf(b)).any()))
+        hits = [int(torch.isfinite(a).sum()) for a in got]
+        start, end, max_run = args[2], args[3], args[7]
+        cut = int((end - start == max_run).sum())
+        print(f'K5 ball_select {what}: runs {tuple(start.shape)}, {cut} runs '
+              f'at the {max_run}-row cut, hits selected per radius {hits}: '
+              f'bit-equal to plain {same}, max abs err {err}', flush=True)
+        check(same and err == 0 and sum(hits) > 0, f'ball_select {what} bit-equal')
+        return err, cut
+
+    ones, errs = [], []
+    for src, args in zip(sources, calls):
+        errs.append(held(args, f'{src} B=2')[0])
+        one = tuple(a[:1].contiguous() if torch.is_tensor(a) else a
+                    for a in args)
+        errs.append(held(one, f'{src} B=1')[0])
+        ones.append(one)
+    xyz, orig, start, end, centers, *static = calls[0]
+    perm = torch.randperm(orig.shape[1], device='cuda', generator=g)
+    errs.append(held((xyz, perm[orig.long()].int().contiguous(), start, end,
+                      centers, *static), 'raw_points, original indices shuffled')[0])
+    every_third = (torch.arange(start.shape[1], device='cuda') % 3 == 0)[
+        None, :, None]
+    errs.append(held((xyz, orig, start,
+                      torch.where(every_third, start, end).contiguous(), centers,
+                      *static), 'raw_points, a third of the centres invalid')[0])
+    # 6000 points in one 0.5 m cube: its cells hold far more than the cap
+    lo = torch.tensor(det.info['point_cloud_range'][:3], device='cuda')
+    hi = torch.tensor(det.info['point_cloud_range'][3:], device='cuda')
+    cloud = lo + (hi - lo) * torch.rand((1, 131072, 3), device='cuda',
+                                         generator=g)
+    cloud[0, :6000] = torch.tensor([20.0, 3.0, -1.0], device='cuda') \
+        + 0.5 * torch.rand((6000, 3), device='cuda', generator=g)
+    ctr = cloud[:, torch.randperm(131072, device='cuda', generator=g)[:2048]]
+    ctr[0, :256] = cloud[0, :256]
+    knobs = det.model.pfe.knobs
+    dense, _ = record_ball_selects(lambda: pointnet2.grid_ball_query_multi(
+        (0.4, 0.8), (16, 16), cloud, torch.tensor([40000], device='cuda'), ctr,
+        bounds=knobs.bq_grid[0], cell_cap=knobs.bq_grid[1]))
+    err, cut = held(dense[0], 'a clump over the cell cap')
+    errs.append(err)
+    check(cut > 0, f'the clump reaches the run cut ({cut} runs at it)')
+
+    rows, total = [], {'ms': 0.0, 'plain_ms': 0.0, 'bytes_ms': 0.0,
+                       'ops_ms': 0.0}
+    for src, args in zip(sources, ones):
+        pairs, rows_read, n_bytes, n_flop = select_work(torch, args)
+        row = {'source': src, 'n_row': args[2].shape[-1],
+               'rows': args[1].shape[1], 'rows_read': rows_read,
+               'radii': list(args[5]),
+               'nsamples': list(args[6]), 'live_pairs': pairs,
+               'bytes': n_bytes, 'flop': n_flop,
+               'ms': cuda_ms(lambda: ball_select(*args), torch),
+               'plain_ms': cuda_ms(lambda: ball_select_plain(*args), torch)}
+        row['bound_ms'], row['bound_by'] = bound_ms(n_bytes, n_flop)
+        for key in ('ms', 'plain_ms'):
+            total[key] += row[key]
+        total['bytes_ms'] += n_bytes / HBM_BYTES_PER_S * 1e3
+        total['ops_ms'] += n_flop / F32_FLOP_PER_S * 1e3
+        rows.append(row)
+        print(f'ball_select {src} B=1: n_row {row["n_row"]}, {row["rows"]} rows '
+              f'({rows_read} read), {pairs} live pairs, device {row["ms"]:.4f} ms, plain '
+              f'{row["plain_ms"]:.4f} ms, bound {row["bound_ms"]:.5f} ms '
+              f'({row["bound_by"]}; {n_bytes} bytes, {n_flop} FLOP)', flush=True)
+    bound = sum(r['bound_ms'] for r in rows)
+    print(f'ball_select, the 5 launches of a request: device {total["ms"]:.4f} '
+          f'ms, plain {total["plain_ms"]:.4f} ms, bound {bound:.5f} ms',
+          flush=True)
+    return {'name': 'ball_select', 'route': 'cuda',
+            'source': 'lidardetection_tpu_torch/csrc/ball_select.cu',
+            'replaces': 'lidardetection_tpu/ops/select_tpu.py:64',
+            'max_abs_err': max(errs),  # the largest of every case above
+            # per call: the mean over the 5 launches of a request
+            'ms': total['ms'] / 5, 'plain_ms': total['plain_ms'] / 5,
+            'bound_ms': bound / 5,
+            'bound_by': 'bytes' if total['bytes_ms'] >= total['ops_ms']
+            else 'operations',
+            'library_ms': None, 'per_request_ms': total['ms'], 'sources': rows}
+
+
+def pvrcnn_split(torch, det, points):
+    """The PV-RCNN forward by module, with FPS, the five ball queries and
+    the proposal layer timed apart."""
+    from lidardetection_tpu_torch.models.roi_heads import roi_head_utils
+    from lidardetection_tpu_torch.ops import pointnet2
+
+    sources = det.model.pfe.sa_sources
+    med = forward_split(torch, det, points, functions=(
+        (pointnet2, 'fps', ['fps']),
+        (pointnet2, 'ball_query_multi', [f'ball query {s}' for s in sources]),
+        (roi_head_utils, 'proposal_layer', ['proposal layer'])))
+    queries = sum(med[f'ball query {s}'] for s in sources)
+    print(f'PV-RCNN forward: VSA {med["pfe"]:.2f} ms = FPS {med["fps"]:.2f} + '
+          f'ball queries {queries:.2f} + the rest {med["pfe"] - med["fps"] - queries:.2f}; '
+          f'RoI head {med["roi_head"]:.2f} ms = proposal layer '
+          f'{med["proposal layer"]:.2f} + RoI-grid pooling and FC '
+          f'{med["roi_head"] - med["proposal layer"]:.2f}', flush=True)
+
+
+def compare_plain_phase(torch, det, cfg_file, points, wrappers):
+    """One f32 request on the card with the kernels against the same request
+    on the card with the plain versions (same weights and cloud, so only
+    the kernels differ): the same kept count and labels; scores within
+    1e-5, boxes within 1e-5 of max(1, |box|) (f32 spacing at 70 m is 7.6e-6:
+    K3's sums in another order move the last bits)."""
+    from lidardetection_tpu_torch.config import cfg_from_yaml_file
+    from lidardetection_tpu_torch.serve import Detector
+
+    cfg = cfg_from_yaml_file(cfg_file)
+    cfg.MODEL.COMPUTE_DTYPE = 'float32'
+    state = {k: v.cpu() for k, v in det.model.state_dict().items()}
+    twin = Detector(cfg, device='cuda', state_dict=state)
+    results = {}
+    for name, plain in (('kernels', False), ('plain versions', True)):
+        for k in wrappers:
+            k.launches = 0
+        with plain_versions() if plain else contextlib.nullcontext():
+            out = twin.forward(twin.make_batch([points]))
+            preds = twin.postprocess(out)
+        launched = sum(k.launches for k in wrappers)
+        check((launched == 0) == plain, f'f32 request with {name}: {launched} '
+              'kernel launches')
+        results[name] = (out, preds)
+    (out_k, pk), (out_p, pp) = results['kernels'], results['plain versions']
+    for key in ('point_features', 'rois', 'batch_box_preds'):
+        d = float((out_k[key] - out_p[key]).abs().max())
+        print(f'f32 request, kernels vs plain versions on the card: max|d {key}| '
+              f'= {d:.3g} (max {float(out_p[key].abs().max()):.3g})', flush=True)
+    n = int(pk['num_preds'][0])
+    check(n == int(pp['num_preds'][0]) and n > 0,
+          f'kept counts {n} vs {int(pp["num_preds"][0])}')
+    check(torch.equal(pk['pred_labels'], pp['pred_labels']), 'same labels')
+    ds = float((pk['pred_scores'] - pp['pred_scores']).abs().max())
+    db = (pk['pred_boxes'] - pp['pred_boxes']).abs() \
+        / pp['pred_boxes'].abs().clamp(min=1.0)
+    print(f'f32 request, kernels vs plain versions on the card: {n} kept, '
+          f'labels equal, max|d score| {ds:.3g}, max|d box| / max(1, |box|) '
+          f'{float(db.max()):.3g} (tolerance 1e-5 each)', flush=True)
+    check(ds <= 1e-5 and float(db.max()) <= 1e-5, 'kept detections agree')
+
+
 def gradient_distance(got, want):
     """Per leaf, the largest |got - want| as a share of the leaf's largest
     |want|, and the leaf's relative L2 distance; the relative L2 distance
@@ -898,24 +1153,27 @@ def gradient_distance(got, want):
 
 @contextlib.contextmanager
 def plain_versions():
-    """While it is open the model's sparse convolutions and its scatter run
-    their plain versions under autograd, on whatever device the tensors lie,
-    so a gradient can be taken on the card with no kernel of csrc/ in it."""
+    """While it is open the model's sparse convolutions, its scatter and its
+    ball selection run their plain versions (under autograd where there is
+    a gradient), on whatever device the tensors lie, so a request or a
+    gradient can be taken on the card with no kernel of csrc/ in it."""
     from lidardetection_tpu_torch.models.backbones_2d import map_to_bev
-    from lidardetection_tpu_torch.ops import sparse
+    from lidardetection_tpu_torch.ops import pointnet2, sparse
     from lidardetection_tpu_torch.ops.scatter_cuda import scatter_rows_plain
+    from lidardetection_tpu_torch.ops.select_cuda import ball_select_plain
     from lidardetection_tpu_torch.ops.sparse_conv_cuda import rulebook_conv_plain
 
     kept = (sparse.sparse_conv_apply, sparse.scatter_rows,
-            map_to_bev.scatter_rows)
+            map_to_bev.scatter_rows, pointnet2.ball_select)
     sparse.sparse_conv_apply = lambda f, valid, rb, w, **kwargs: \
         rulebook_conv_plain(f, rb, w, valid)
     sparse.scatter_rows = map_to_bev.scatter_rows = scatter_rows_plain
+    pointnet2.ball_select = ball_select_plain
     try:
         yield
     finally:
         (sparse.sparse_conv_apply, sparse.scatter_rows,
-         map_to_bev.scatter_rows) = kept
+         map_to_bev.scatter_rows, pointnet2.ball_select) = kept
 
 
 def compare_train_phase(torch, trainer, cfg_file, batch, wrappers):
@@ -1009,6 +1267,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
 
     from lidardetection_tpu_torch.ops.scatter_cuda import scatter_rows
+    from lidardetection_tpu_torch.ops.select_cuda import ball_select
     from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
         rulebook_conv, rulebook_conv_dw,
     )
@@ -1044,6 +1303,17 @@ def main():
     profiled.append((det, clouds[0]))
     del det
 
+    print('== PV-RCNN ==', flush=True)
+    wrappers = (pillar_vfe, scatter_rows, rulebook_conv, rulebook_conv_dw,
+                ball_select)
+    det, clouds, launches_pvrcnn = served(
+        CFG_PVRCNN, N_REQUESTS_PVRCNN, dict(zip(wrappers, (0, 1, 12, 0, 5))))
+    k5 = select_kernel_phase(torch, det)
+    pvrcnn_split(torch, det, clouds[0])
+    compare_plain_phase(torch, det, CFG_PVRCNN, clouds[0], wrappers)
+    profiled.append((det, clouds[0]))
+    del det
+
     def trained(cfg_file, seed, per_step):
         """Trainer at full width, its batches, and the launch counts of
         the timed steps of the training main path."""
@@ -1055,10 +1325,9 @@ def main():
               flush=True)
         return trainer, batches, train_phase(torch, trainer, batches, per_step)
 
-    wrappers = (pillar_vfe, scatter_rows, rulebook_conv, rulebook_conv_dw)
     print('== PointPillar training ==', flush=True)
     trainer, batches, launches_train = trained(
-        CFG, SEED + 300, dict(zip(wrappers, (0, 1, 0, 0))))
+        CFG, SEED + 300, dict(zip(wrappers, (0, 1, 0, 0, 0))))
     step_split(torch, trainer, batches[-1])
     compare_train_phase(torch, trainer, CFG, batches[-1], wrappers)
     trainer_pillar, batch_pillar = trainer, batches[-1]
@@ -1066,7 +1335,7 @@ def main():
 
     print('== SECOND training ==', flush=True)
     trainer, batches, launches_train_second = trained(
-        CFG_SECOND, SEED + 400, dict(zip(wrappers, (0, 1, 12 + 7, 12))))
+        CFG_SECOND, SEED + 400, dict(zip(wrappers, (0, 1, 12 + 7, 12, 0))))
     split = step_split(torch, trainer, batches[-1])
     k4 = weight_gradient_phase(torch, trainer, batches[-1], split['backward'])
     compare_train_phase(torch, trainer, CFG_SECOND, batches[-1], wrappers)
@@ -1078,11 +1347,12 @@ def main():
         profile_run(torch, f'{each.cfg["MODEL"]["NAME"]} training step',
                     lambda: each.step(batch))
 
-    # launches: the sum over the four main paths' runs, each counted from 0
+    # launches: the sum over the five main paths' runs, each counted from 0
     runs = {'PointPillar serving': launches, 'SECONDNet serving': launches_second,
+            'PVRCNN serving': launches_pvrcnn,
             'PointPillar training': launches_train,
             'SECONDNet training': launches_train_second}
-    kernels = [k1, k2, k3, k4]
+    kernels = [k1, k2, k3, k4, k5]
     for k in kernels:
         k['launches'] = sum(run.get(k['name'], 0) for run in runs.values())
         check(k['launches'] > 0, f'{k["name"]} ran on a main path')

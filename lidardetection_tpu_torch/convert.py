@@ -1,5 +1,5 @@
-"""flax variables of the JAX PointPillar or SECOND -> this package's
-``state_dict``.
+"""flax variables of the JAX PointPillar, SECOND or PV-RCNN -> this
+package's ``state_dict``.
 
 Input: the flax ``params`` and ``batch_stats`` trees as nested dicts of
 numpy arrays (``jax.device_get`` of the JAX package's variables); no JAX is
@@ -10,6 +10,14 @@ needed here. Names map one to one except:
   * ``SparseConvLayer_<n>`` -> ``convs.<n>`` and ``SparseBasicBlock_<n>`` ->
     ``blocks.<n>`` (creation order in VoxelBackBone8x and inside a block);
     a sparse layer's ``kernel`` (K, C_in, C_out) keeps its name and layout;
+    its ``MaskedBatchNorm_0`` -> ``bn``;
+  * the point-based modules: ``PointnetSAModuleMSG_<n>`` -> ``sa_layers.<n>``,
+    ``SharedMLP_<n>`` -> ``mlps.<n>``, ``FCHead_<n>`` -> ``fc_heads.<n>``,
+    ``pre_proj_<i>`` / ``xyz_proj_<i>`` / ``pre_bn_<i>`` -> ``pre_proj.<i>`` /
+    ``xyz_proj.<i>`` / ``pre_bn.<i>``, ``RoIGridPool_0`` -> ``roi_grid_pool``,
+    ``FCLayers_0`` -> ``fc_layers``; inside them ``Dense_<n>`` ->
+    ``dense.<n>`` (its ``kernel`` (in, out) keeps its layout) and
+    ``MaskedBatchNorm_<n>`` -> ``bn.<n>``;
   * ``Conv_0/kernel`` HWIO -> ``weight`` OIHW;
   * ``ConvTranspose_0/kernel`` HWIO -> flipped in both spatial axes, then
     ``weight`` (I, O, H, W): flax's transposed convolution does not flip
@@ -33,17 +41,26 @@ def _flatten(tree, prefix=()):
 
 
 _SCOPES = {'ConvBNReLU': 'units', 'SparseConvLayer': 'convs',
-           'SparseBasicBlock': 'blocks'}
+           'SparseBasicBlock': 'blocks', 'PointnetSAModuleMSG': 'sa_layers',
+           'SharedMLP': 'mlps', 'FCHead': 'fc_heads', 'Dense': 'dense',
+           'pre_proj': 'pre_proj', 'xyz_proj': 'xyz_proj', 'pre_bn': 'pre_bn'}
+_SINGLE = {'RoIGridPool_0': 'roi_grid_pool', 'FCLayers_0': 'fc_layers'}
+# Dense + BatchNorm stacks: their BatchNorms are the list `bn`, elsewhere a
+# module's one BatchNorm is `bn`
+_STACKS = ('pfe', 'roi_head', 'SharedMLP_', 'FCLayers_', 'FCHead_')
 
 
 def _convert(path, value):
     parts = []
-    for key in path[:-1]:
+    for i, key in enumerate(path[:-1]):
         scope, _, index = key.rpartition('_')
-        if scope in _SCOPES:
+        if key in _SINGLE:
+            parts.append(_SINGLE[key])
+        elif scope == 'MaskedBatchNorm':
+            stack = i > 0 and path[i - 1].startswith(_STACKS)
+            parts += ['bn', index] if stack else ['bn']
+        elif scope in _SCOPES:
             parts += [_SCOPES[scope], index]
-        elif key == 'MaskedBatchNorm_0':
-            parts.append('bn')
         elif key not in ('Conv_0', 'ConvTranspose_0'):
             parts.append(key)
     scope, leaf = (path[-2] if len(path) > 1 else ''), path[-1]

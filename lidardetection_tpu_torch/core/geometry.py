@@ -1,4 +1,4 @@
-"""Box geometry (lidardetection_tpu/core/geometry.py:30, :80).
+"""Box geometry (lidardetection_tpu/core/geometry.py:30, :80, :101).
 
 Rotations are written out elementwise in float32, never as a matrix
 product, so no TF32 or reduced-precision dot can reach them.
@@ -54,3 +54,16 @@ def boxes_to_corners_3d(boxes3d):
     corners = boxes3d[:, None, 3:6] * template[None]
     corners = rotate_points_along_z(corners, boxes3d[:, 6])
     return corners + boxes3d[:, None, 0:3]
+
+
+def get_voxel_centers(voxel_coords, downsample_times, voxel_size,
+                      point_cloud_range):
+    """(..., 3) integer (z, y, x) voxel coords -> (..., 3) metric (x, y, z)
+    centres ``(c + 0.5) * voxel_size * downsample + range`` in float32
+    (geometry.py:101)."""
+    dev = voxel_coords.device
+    coords = voxel_coords.flip(-1).float()
+    size = torch.tensor(voxel_size, dtype=torch.float32, device=dev) \
+        * downsample_times
+    lo = torch.tensor(point_cloud_range[0:3], dtype=torch.float32, device=dev)
+    return (coords + 0.5) * size + lo

@@ -10,6 +10,11 @@ post-processing decodes only the rows it keeps, through
 ``anchor_from_idx`` and ``decode_box_fn``. Training de-interleaves the
 product into ``cls_preds`` / ``box_preds`` / ``dir_cls_preds`` in float32,
 assigns targets and emits ``anchor_head_fwd`` for `anchor_head_loss`.
+
+Ahead of a second stage (``predict_boxes_when_training``, PV-RCNN) eval
+does not defer: it emits ``batch_cls_preds`` (B, N_anchors, nc) float32
+logits and ``batch_box_preds`` decoded for every anchor, for the proposal
+layer (anchor_head.py:237-241).
 """
 
 import math
@@ -50,10 +55,12 @@ def build_head_anchors(model_cfg, grid_size, point_cloud_range):
 
 class AnchorHeadSingle(nn.Module):
     def __init__(self, model_cfg, input_channels, num_class, grid_size,
-                 point_cloud_range, dtype=None, generator=None):
+                 point_cloud_range, dtype=None, predict_boxes_when_training=False,
+                 generator=None):
         super().__init__()
         info = build_head_anchors(model_cfg, grid_size, point_cloud_range)
         self.model_cfg = model_cfg
+        self.predict_boxes_when_training = predict_boxes_when_training
         self.box_coder = info['box_coder']
         self.num_class = num_class
         self.dtype = dtype
@@ -192,6 +199,15 @@ class AnchorHeadSingle(nn.Module):
         if self.training:
             return {**batch, 'anchor_head_fwd': self._train_forward(batch, fused)}
         code = self.box_coder.full_code_size
+        if self.predict_boxes_when_training:
+            nc = self.num_class
+            rows = fused.reshape(fused.shape[0], -1, nc + code + self.num_dir_bins)
+            dir_raw = rows[..., nc + code:] if self.use_dir else None
+            return {**batch,
+                    'batch_cls_preds': rows[..., :nc].float(),
+                    'batch_box_preds': self.decode_boxes(
+                        rows[..., nc:nc + code], dir_raw, self.flat_anchors[None]),
+                    'cls_preds_normalized': False}
         return {
             **batch,
             'batch_fused_preds': fused,

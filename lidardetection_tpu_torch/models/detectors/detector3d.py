@@ -1,10 +1,13 @@
-"""Detector assembly (lidardetection_tpu/models/detectors/detector3d.py), the
-single-stage slots: vfe -> [backbone_3d] -> map_to_bev -> backbone_2d ->
-dense_head (PointPillar without a 3D backbone, SECOND with one).
+"""Detector assembly (lidardetection_tpu/models/detectors/detector3d.py:
+124-245): vfe -> [backbone_3d] -> map_to_bev -> backbone_2d -> dense_head
+-> [pfe -> point_head -> roi_head] (PointPillar without a 3D backbone,
+SECOND with one, PV-RCNN with all three point-based slots; ``pfe`` runs
+after the dense head, whose BEV map and sparse stages it reads).
 
 In train mode the forward assigns targets and `Detector3D.loss` sums the
-training loss. Every other slot or module raises NotImplementedError
-naming the ROADMAP.md item that will port it.
+training loss of the single-stage detectors; training PV-RCNN raises.
+Every other slot or module raises NotImplementedError naming the
+ROADMAP.md item that will port it.
 """
 
 import torch
@@ -12,20 +15,26 @@ from torch import nn
 
 from ..backbones_2d.bev_backbone import BaseBEVBackbone
 from ..backbones_2d.map_to_bev import HeightCompression, PointPillarScatter
+from ..backbones_3d.pfe import VoxelSetAbstraction
 from ..backbones_3d.spconv_backbone import VoxelBackBone8x
 from ..backbones_3d.vfe import MeanVFE, PillarVFE
 from ..dense_heads.anchor_head import AnchorHeadSingle
+from ..dense_heads.point_head import PointHeadSimple
+from ..roi_heads.pvrcnn_head import PVRCNNHead
 
 NOT_PORTED = {  # detector or module name -> ROADMAP.md queue 1 item
-    'PVRCNN': 'PV-RCNN', 'PartA2Net': 'Part-A2', 'PointRCNN': 'PointRCNN',
-    'VoxelSetAbstraction': 'PV-RCNN', 'PVRCNNHead': 'PV-RCNN',
-    'PointHeadSimple': 'PV-RCNN',
+    'PartA2Net': 'Part-A2', 'PointRCNN': 'PointRCNN',
     'UNetV2': 'Part-A2', 'PartA2FCHead': 'Part-A2',
     'PointIntraPartOffsetHead': 'Part-A2',
     'PointNet2MSG': 'PointRCNN', 'PointRCNNHead': 'PointRCNN',
     'PointHeadBox': 'PointRCNN',
     'AnchorHeadMulti': 'Variants', 'PointHeadSimpleMultiFrame': 'Variants',
 }
+
+
+TWO_STAGE_TRAINING_NOT_PORTED = (
+    'training PV-RCNN (point head targets, RoI target sampling, RCNN '
+    'losses) is not ported yet: see ROADMAP.md queue 1, "PV-RCNN training"')
 
 
 def not_ported(name):
@@ -35,17 +44,20 @@ def not_ported(name):
 
 
 class Detector3D(nn.Module):
-    """Single-stage detector assembled from the MODEL config.
+    """Detector assembled from the MODEL config.
 
     Args:
         model_cfg: MODEL section of the yaml config.
         num_class: number of foreground classes.
         dataset_info: dict with grid_size (nx, ny, nz), voxel_size,
             point_cloud_range, num_point_features (config.dataset_info).
+        op_knobs: ``ops.pointnet2.PointOpKnobs`` of the point ops (None =
+            exact; they engage on the card only).
         generator: torch.Generator for parameter initialization.
     """
 
-    def __init__(self, model_cfg, num_class, dataset_info, generator=None):
+    def __init__(self, model_cfg, num_class, dataset_info, op_knobs=None,
+                 generator=None):
         super().__init__()
         dtype_name = model_cfg.get('COMPUTE_DTYPE', 'float32')
         dtype = None if dtype_name in (None, 'float32') \
@@ -54,12 +66,12 @@ class Detector3D(nn.Module):
         pc_range = tuple(dataset_info['point_cloud_range'])
         voxel_size = tuple(dataset_info['voxel_size'])
 
-        for slot in ('PFE', 'POINT_HEAD', 'ROI_HEAD'):
-            if model_cfg.get(slot):
-                raise not_ported(model_cfg[slot]['NAME'])
         for slot, want in (('BACKBONE_2D', 'BaseBEVBackbone'),
-                           ('DENSE_HEAD', 'AnchorHeadSingle')):
-            if model_cfg[slot]['NAME'] != want:
+                           ('DENSE_HEAD', 'AnchorHeadSingle'),
+                           ('PFE', 'VoxelSetAbstraction'),
+                           ('POINT_HEAD', 'PointHeadSimple'),
+                           ('ROI_HEAD', 'PVRCNNHead')):
+            if model_cfg.get(slot) and model_cfg[slot]['NAME'] != want:
                 raise not_ported(model_cfg[slot]['NAME'])
         num_point_features = dataset_info['num_point_features']
         bev_channels = model_cfg['MAP_TO_BEV']['NUM_BEV_FEATURES']
@@ -100,11 +112,50 @@ class Detector3D(nn.Module):
             head_cfg, self.backbone_2d.num_bev_features,
             num_class=1 if head_cfg.get('CLASS_AGNOSTIC', False) else num_class,
             grid_size=grid_size, point_cloud_range=pc_range, dtype=dtype,
+            predict_boxes_when_training=bool(model_cfg.get('ROI_HEAD')),
             generator=generator)
 
+        self.pfe = self.point_head = self.roi_head = None
+        if model_cfg.get('PFE'):
+            if self.backbone_3d is None:
+                raise NotImplementedError('VoxelSetAbstraction reads the '
+                                          'sparse stages of a 3D backbone')
+            self.pfe = VoxelSetAbstraction(
+                model_cfg['PFE'], voxel_size, pc_range, bev_channels,
+                num_point_features, self.backbone_3d.backbone_channels,
+                knobs=op_knobs, dtype=dtype, generator=generator)
+        point_channels = None if self.pfe is None \
+            else self.pfe.num_point_features
+        if model_cfg.get('POINT_HEAD'):
+            cfg = model_cfg['POINT_HEAD']
+            self.point_head = PointHeadSimple(
+                cfg, 1 if cfg.get('CLASS_AGNOSTIC', False) else num_class,
+                self.pfe.num_point_features_before_fusion
+                if cfg.get('USE_POINT_FEATURES_BEFORE_FUSION', False)
+                else point_channels, dtype=dtype, generator=generator)
+        if model_cfg.get('ROI_HEAD'):
+            cfg = model_cfg['ROI_HEAD']
+            self.roi_head = PVRCNNHead(
+                cfg, point_channels,
+                1 if cfg.get('CLASS_AGNOSTIC', True) else num_class,
+                dtype=dtype, generator=generator)
+
+    @property
+    def reads_points(self):
+        """Whether a batch must carry the raw points (``points``,
+        ``num_points``): only the point-based slots read them."""
+        return self.pfe is not None
+
     def forward(self, batch):
+        two_stage = (self.pfe, self.point_head, self.roi_head)
+        if self.training and any(m is not None for m in two_stage):
+            raise NotImplementedError(TWO_STAGE_TRAINING_NOT_PORTED)
+        if 'points' in batch and 'point_valid' not in batch:
+            n = batch['points'].shape[1]
+            batch = {**batch, 'point_valid': torch.arange(
+                n, device=batch['points'].device) < batch['num_points'][:, None]}
         for module in (self.vfe, self.backbone_3d, self.map_to_bev,
-                       self.backbone_2d, self.dense_head):
+                       self.backbone_2d, self.dense_head, *two_stage):
             if module is not None:
                 batch = module(batch)
         return batch

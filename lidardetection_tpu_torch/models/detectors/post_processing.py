@@ -1,14 +1,16 @@
-"""Single-stage eval post-processing: top-k, deferred decode, rotated NMS
-(the deferred-decode branch of
-lidardetection_tpu/models/detectors/post_processing.py:58-179).
+"""Eval post-processing: score threshold and rotated NMS
+(lidardetection_tpu/models/detectors/post_processing.py:31-179).
 
-Candidates are ranked on the raw logits (sigmoid is monotonic): each BEV
-pixel's best class logit ranks the pixels, the top ``n_pix`` pixels' rows
-are gathered and re-ranked exactly, and only the kept NMS_PRE_MAXSIZE rows
-are upcast, passed through the sigmoid and decoded. The score threshold
-is applied in logit space. Outputs are padded to NMS_POST_MAXSIZE with a
-mask and a count, as in the JAX package. Its ``approx_max_k`` over pixels
-(batch > 1) is an exact top-k here.
+Single-stage heads take the deferred-decode branch: candidates are ranked
+on the raw logits (sigmoid is monotonic), each BEV pixel's best class
+logit ranks the pixels, the top ``n_pix`` pixels' rows are gathered and
+re-ranked exactly, and only the kept NMS_PRE_MAXSIZE rows are upcast,
+passed through the sigmoid and decoded; the score threshold is applied in
+logit space. Its ``approx_max_k`` over pixels (batch > 1) is an exact
+top-k here. A two-stage head (PV-RCNN) hands decoded boxes: the sigmoid
+probabilities are thresholded and NMS'd, labelled by ``roi_labels``.
+Outputs are padded to NMS_POST_MAXSIZE with a mask and a count, as in the
+JAX package.
 """
 
 import numpy as np
@@ -21,9 +23,12 @@ VARIANTS_NOT_PORTED = 'see ROADMAP.md queue 1, "Variants"'
 
 def post_processing(batch, post_cfg, num_class):
     """Args:
-        batch: head output with batch_fused_preds (B, H, W, na*tot),
-            head_raw_sizes, head_layout, anchor_from_idx, decode_box_fn,
-            cls_preds_normalized (+ optional batch_valid_preds (B, N)).
+        batch: a single-stage head's output with batch_fused_preds
+            (B, H, W, na*tot), head_raw_sizes, head_layout,
+            anchor_from_idx, decode_box_fn (+ optional batch_valid_preds
+            (B, N)), or a two-stage head's with batch_cls_preds (B, N, nc),
+            batch_box_preds (B, N, 7+), batch_valid_preds and roi_labels
+            (B, N); both with cls_preds_normalized.
     Returns dict: pred_boxes (B, post, 7+), pred_scores (B, post),
     pred_labels (B, post) (1-based, 0 = empty), pred_mask (B, post) bool,
     num_preds (B,), and num_candidates (B,): live rows entering NMS.
@@ -35,12 +40,11 @@ def post_processing(batch, post_cfg, num_class):
     if nms_cfg['NMS_TYPE'] != 'nms_gpu':
         raise NotImplementedError(f'NMS_TYPE {nms_cfg["NMS_TYPE"]} is not '
                                   f'ported yet: {VARIANTS_NOT_PORTED}')
-    if 'decode_box_fn' not in batch:
-        raise NotImplementedError(
-            'only the deferred-decode single-stage branch is ported; '
-            'two-stage heads are in ROADMAP.md queue 1, "PV-RCNN"')
     score_thresh = post_cfg.get('SCORE_THRESH', None)
     normalized = batch.get('cls_preds_normalized', False)
+    if 'decode_box_fn' not in batch:
+        return _decoded_post_processing(batch, nms_cfg, score_thresh,
+                                        normalized)
 
     fused = batch['batch_fused_preds']  # (B, H, W, na*tot)
     nc, code, nd = batch['head_raw_sizes']
@@ -101,9 +105,31 @@ def post_processing(batch, post_cfg, num_class):
         pre_maxsize=int(nms_cfg['NMS_PRE_MAXSIZE']), post_maxsize=post,
         valid_mask=live, assume_sorted=True)
 
+    return _kept(box_preds, scores, labels, idx, mask, num, live)
+
+
+def _decoded_post_processing(batch, nms_cfg, score_thresh, normalized):
+    """The branch for heads that hand decoded boxes (post_processing.py:
+    141-179 of the JAX package): probabilities thresholded, then NMS."""
+    cls_raw = batch['batch_cls_preds']
+    box_preds = batch['batch_box_preds']
+    valid = batch['batch_valid_preds']
+    scores = (cls_raw if normalized else torch.sigmoid(cls_raw)).amax(-1)
+    labels = batch['roi_labels'].long()
+    if score_thresh is not None:
+        valid = valid & (scores >= score_thresh)
+    idx, mask, num = nms_bev_batched(
+        box_preds[..., 0:7], scores, thresh=nms_cfg['NMS_THRESH'],
+        pre_maxsize=int(nms_cfg['NMS_PRE_MAXSIZE']),
+        post_maxsize=int(nms_cfg['NMS_POST_MAXSIZE']), valid_mask=valid)
+    return _kept(box_preds, scores, labels, idx, mask, num, valid)
+
+
+def _kept(box_preds, scores, labels, idx, mask, num, live):
+    """The NMS survivors, zero-padded to NMS_POST_MAXSIZE."""
     sel_boxes = torch.gather(
         box_preds, 1, idx[..., None].expand(-1, -1, box_preds.shape[-1]))
-    zero = torch.zeros((), device=dev)
+    zero = torch.zeros((), device=scores.device)
     return {
         'pred_boxes': sel_boxes * mask[..., None],
         'pred_scores': torch.where(mask, torch.gather(scores, 1, idx), zero),

@@ -1,8 +1,10 @@
 """Shared building blocks (lidardetection_tpu/models/layers.py:23-126).
 
-BatchNorm uses eps 1e-3 everywhere, as the reference does. Parameters are
-float32; `ConvBNReLU` computes in its `dtype` (the config's COMPUTE_DTYPE)
-when one is given.
+BatchNorm uses eps 1e-3 and momentum 0.99 by default, as the detector's
+layers do in the reference; the point-based layers (set abstraction, VSA,
+point and RoI heads) pass eps 1e-5 and momentum 0.9. Parameters are
+float32; `ConvBNReLU` and `Dense` compute in their `dtype` (the config's
+COMPUTE_DTYPE) when one is given.
 """
 
 import math
@@ -13,6 +15,8 @@ from torch import nn
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99  # ra = m * ra + (1 - m) * batch; torch's momentum 0.01
+# the point-based layers' BatchNorms (torch defaults in the reference)
+POINT_BN = {'eps': 1e-5, 'momentum': 0.9}
 
 
 def lecun_normal_(tensor, fan_in, generator):
@@ -36,16 +40,16 @@ class MaskedBatchNorm(nn.Module):
     the batch in float32 over the entries whose `mask` (the shape of x
     without its channel dim, or broadcastable to it) is set: ``cnt =
     max(sum(mask), 1)``, ``var = max(s2 / cnt - mean^2, 0)``, and moves the
-    running statistics by ``BN_MOMENTUM`` with that biased variance.
+    running statistics by `momentum` with that biased variance.
     Masked-out entries are still normalized. It is written with tensor
     operations, so autograd differentiates through the statistics;
     ``torch.nn.functional.batch_norm`` computes neither the mask nor the
     biased running variance.
     """
 
-    def __init__(self, features, axis=1):
+    def __init__(self, features, axis=1, eps=BN_EPS, momentum=BN_MOMENTUM):
         super().__init__()
-        self.axis = axis
+        self.axis, self.eps, self.momentum = axis, eps, momentum
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer('mean', torch.zeros(features))
@@ -67,14 +71,15 @@ class MaskedBatchNorm(nn.Module):
         mean = s1 / cnt
         var = (s2 / cnt - mean * mean).clamp(min=0.0)
         with torch.no_grad():
-            self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
-            self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
+            m = self.momentum
+            self.mean.copy_(m * self.mean + (1 - m) * mean)
+            self.var.copy_(m * self.var + (1 - m) * var)
         return mean, var
 
     def forward(self, x, mask=None):
         mean, var = self._batch_statistics(x, mask) if self.training \
             else (self.mean, self.var)
-        inv = torch.rsqrt(var + BN_EPS) * self.scale
+        inv = torch.rsqrt(var + self.eps) * self.scale
         shift = self.bias - mean * inv
         shape = [1] * x.dim()
         shape[self.axis] = -1
@@ -110,3 +115,23 @@ class ConvBNReLU(nn.Module):
         else:
             x = F.conv2d(x, w, stride=self.stride, padding=self.padding)
         return torch.relu(self.bn(x))
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``x @ kernel (+ bias)`` over the last dim, with the
+    flax layout and names (``kernel`` (in, out), ``bias``) and lecun_normal
+    initialization. Computes in `dtype` when one is given, else in float32.
+    """
+
+    def __init__(self, in_features, out_features, bias=True, dtype=None,
+                 generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(in_features, out_features))
+        lecun_normal_(self.kernel, in_features, generator)
+        self.bias = nn.Parameter(torch.zeros(out_features)) if bias else None
+
+    def forward(self, x):
+        dt = self.dtype or torch.float32
+        y = x.to(dt) @ self.kernel.to(dt)
+        return y if self.bias is None else y + self.bias.to(dt)

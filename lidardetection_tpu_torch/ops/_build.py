@@ -16,7 +16,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
-KERNELS = ('vfe', 'scatter', 'sparse_conv', 'sparse_conv_dw')
+KERNELS = ('vfe', 'scatter', 'sparse_conv', 'sparse_conv_dw', 'ball_select')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas=-v')
 

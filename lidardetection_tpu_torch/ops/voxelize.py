@@ -84,24 +84,38 @@ def voxelize_np(points, point_cloud_range, voxel_size, max_points_per_voxel,
 
 
 def build_batch(points_list, point_cloud_range, voxel_size,
-                max_points_per_voxel, max_voxels):
+                max_points_per_voxel, max_voxels, max_points=None):
     """Filter, voxelize and stack clouds at fixed capacity.
 
     Returns a dict of numpy arrays: voxels (B, V, P, C) float32,
     voxel_coords (B, V, 3) int32, voxel_num_points (B, V) int32 and
-    num_voxels (B,) int32, with V = max_voxels.
+    num_voxels (B,) int32, with V = max_voxels. With `max_points` (for the
+    detectors that read raw points) also points (B, max_points, C)
+    float32, each cloud's in-range points in their order, zero-padded
+    (cut at max_points), and num_points (B,) int32, as the JAX package's
+    data processor pads them (data_processor.py:122-133).
     """
     pc_range = np.asarray(point_cloud_range, np.float32)
-    tables = []
+    tables, clouds = [], []
     for points in points_list:
         points = np.asarray(points, np.float32)
         points = points[mask_points_by_range(points, pc_range)]
+        clouds.append(points)
         tables.append(voxelize_np(points, pc_range, voxel_size,
                                   max_points_per_voxel, max_voxels))
     voxels, coords, counts, n_vox = zip(*tables)
-    return {
+    batch = {
         'voxels': np.stack(voxels),
         'voxel_coords': np.stack(coords),
         'voxel_num_points': np.stack(counts),
         'num_voxels': np.asarray(n_vox, np.int32),
     }
+    if max_points is not None:
+        width = max(c.shape[1] for c in clouds)
+        padded = np.zeros((len(clouds), max_points, width), np.float32)
+        num = np.zeros(len(clouds), np.int32)
+        for i, c in enumerate(clouds):
+            num[i] = min(len(c), max_points)
+            padded[i, :num[i]] = c[:num[i]]
+        batch.update(points=padded, num_points=num)
+    return batch

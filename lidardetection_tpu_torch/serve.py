@@ -1,4 +1,4 @@
-"""Serving (PointPillar and SECOND): the port's entry point.
+"""Serving (PointPillar, SECOND and PV-RCNN): the port's entry point.
 
 ``Detector(cfg_file, device="cuda", seed=0, state_dict=None)`` builds the
 detector of a YAML config (or of a loaded config) on the card; parameters
@@ -6,6 +6,8 @@ are drawn from ``seed`` unless a ``state_dict`` (for example from
 ``convert.flax_to_state_dict``) is given. ``Detector.predict(points_list)``
 answers one request per cloud (batch 1, as tools/inference.py serves) and
 returns a list of ``{boxes (n, 7), scores (n,), labels (n,)}`` numpy dicts.
+A detector whose slots read raw points (PV-RCNN) gets them in its batch,
+padded to DATA_CONFIG.MAX_POINTS; the others copy only the voxels.
 
 The CPU is used only when asked (``device="cpu"``); the default device
 raises when CUDA is absent.
@@ -46,6 +48,8 @@ class Detector:
         self.num_class = len(self.cfg['CLASS_NAMES'])
         self.model = build_network(self.cfg['MODEL'], self.num_class,
                                    self.info, seed=seed)
+        self.max_points = int(data_cfg['MAX_POINTS']) \
+            if self.model.reads_points else None
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         self.model.to(device)
@@ -54,13 +58,14 @@ class Detector:
         """Voxelize clouds on the host; the batch tensors on the device."""
         arrays = build_batch(points_list, self.info['point_cloud_range'],
                              self.info['voxel_size'],
-                             self.max_points_per_voxel, self.max_voxels)
+                             self.max_points_per_voxel, self.max_voxels,
+                             max_points=self.max_points)
         return {k: torch.from_numpy(v).to(self.device)
                 for k, v in arrays.items()}
 
     @torch.inference_mode()
     def forward(self, batch):
-        """Model forward: the head output with ``batch_fused_preds``."""
+        """Model forward: the last head's output for `postprocess`."""
         return self.model(batch)
 
     @torch.inference_mode()

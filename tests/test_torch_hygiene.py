@@ -67,7 +67,7 @@ def test_port_imports_no_jax(name, voxel_size, layer_nums):
     assert 'LEAKED []' in proc.stdout, proc.stdout
 
 
-@pytest.mark.parametrize('name', ['pointpillar', 'second'])
+@pytest.mark.parametrize('name', ['pointpillar', 'second', 'pv_rcnn'])
 def test_default_device_is_cuda(name):
     from lidardetection_tpu_torch.serve import Detector
 
@@ -110,9 +110,12 @@ def test_unported_paths_raise_with_the_roadmap_item(name):
         AnchorHeadSingle,
     )
 
-    if name == 'PVRCNN':
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            build_network({'NAME': 'PVRCNN'}, 3, {})
+    if name == 'PVRCNN':  # serving is ported, training is not
+        from lidardetection_tpu_torch.config import dataset_info
+        cfg = cfg_from_yaml_file('tools/cfgs/kitti_models/pv_rcnn.yaml')
+        model = build_network(cfg.MODEL, 3, dataset_info(cfg.DATA_CONFIG))
+        with pytest.raises(NotImplementedError, match='PV-RCNN training'):
+            model.train()({'voxels': torch.zeros(1, 8, 5, 4)})
         return
     cfg = cfg_from_yaml_file('tools/cfgs/kitti_models/pointpillar.yaml')
     head_cfg = cfg.MODEL.DENSE_HEAD
@@ -126,6 +129,7 @@ def test_unported_paths_raise_with_the_roadmap_item(name):
 
 def test_kernel_wrappers_reject_other_devices():
     from lidardetection_tpu_torch.ops.scatter_cuda import scatter_rows
+    from lidardetection_tpu_torch.ops.select_cuda import ball_select
     from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
         rulebook_conv, rulebook_conv_dw,
     )
@@ -150,3 +154,9 @@ def test_kernel_wrappers_reject_other_devices():
                    torch.zeros((1, 4), dtype=torch.int32, device=meta),
                    torch.zeros((4, 16), device=meta),
                    torch.zeros((16,), device=meta))
+    runs = torch.zeros((1, 4, 9), dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError, match='cpu or cuda'):
+        ball_select(torch.zeros((1, 64, 3), device=meta),
+                    torch.zeros((1, 64), dtype=torch.int32, device=meta),
+                    runs, runs, torch.zeros((1, 4, 3), device=meta),
+                    (0.4, 0.8), (16, 16), 192)

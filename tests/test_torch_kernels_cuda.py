@@ -1,4 +1,4 @@
-"""K1-K4 CUDA kernels against their plain PyTorch versions on the card, and
+"""K1-K5 CUDA kernels against their plain PyTorch versions on the card, and
 the autograd functions that launch them in a backward pass.
 
 Marked ``cuda``: without a CUDA device (and nvcc to build csrc/) each test
@@ -11,9 +11,11 @@ import pytest
 import torch
 
 from lidardetection_tpu_torch.ops import sparse
+from lidardetection_tpu_torch.ops import pointnet2
 from lidardetection_tpu_torch.ops.scatter_cuda import (
     scatter_rows, scatter_rows_grad_plain, scatter_rows_plain,
 )
+from lidardetection_tpu_torch.ops.select_cuda import ball_select, ball_select_plain
 from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
     rulebook_conv, rulebook_conv_dw, rulebook_conv_dw_plain,
     rulebook_conv_plain,
@@ -237,3 +239,78 @@ def test_scatter_rows_backward_is_the_gather(device):
     assert scatter_rows.launches == before + 1
     torch.testing.assert_close(
         feats.grad, scatter_rows_grad_plain(g, keys_t, n_slots), rtol=0, atol=0)
+
+
+def _select_case(device, b, n_row, empty_share, seed):
+    """A cell-sorted table of a clumped cloud and its row runs, as
+    ops/pointnet2.py::grid_ball_query_multi prepares them for K5."""
+    rng = np.random.RandomState(seed)
+    n, m, cap = 5000, 700, 64
+    xyz = rng.uniform(0, 8, (b, n, 3)).astype(np.float32)
+    xyz[:, :2000] = rng.uniform(0, 1, (b, 2000, 3)) + np.float32([3, 3, 1])
+    orig = np.stack([rng.permutation(n) for _ in range(b)]).astype(np.int32)
+    start = np.sort(rng.randint(0, n - 3 * cap, (b, m, n_row)), -1)
+    start += np.arange(n_row) * 3 * cap // n_row  # disjoint runs
+    start = np.minimum(start, n - 1).astype(np.int32)
+    gaps = np.diff(np.concatenate([start, np.full((b, m, 1), n)], -1), axis=-1)
+    end = start + np.minimum(rng.randint(0, 3 * cap + 1, (b, m, n_row)), gaps)
+    end = np.where(rng.rand(b, m, n_row) < empty_share, start, end)
+    centers = rng.uniform(0, 8, (b, m, 3)).astype(np.float32)
+    centers[:, :300] = xyz[:, rng.randint(0, 2000, 300)]  # in the clump
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (xyz, orig, start, end.astype(np.int32), centers)]
+
+
+@pytest.mark.parametrize('radii,nsamples,n_row', [
+    ((0.4, 0.8), (16, 16), 9), ((0.8, 1.2), (16, 32), 9),
+    ((1.2, 2.4), (16, 32), 6), ((2.4, 4.8), (16, 32), 3)])
+@pytest.mark.parametrize('b', [1, 2])
+@pytest.mark.parametrize('empty_share', [0.0, 1.0])
+def test_ball_select_kernel_matches_plain(device, radii, nsamples, n_row, b,
+                                          empty_share):
+    args = _select_case(device, b, n_row, empty_share, seed=n_row + b)
+    before = ball_select.launches
+    got = ball_select(*args, radii, nsamples, 192)
+    torch.cuda.synchronize()
+    assert ball_select.launches == before + 1
+    want = ball_select_plain(*args, radii, nsamples, 192)
+    for g, w in zip(got, want):
+        # the plain version's operation order, no FMA: bit for bit
+        assert torch.equal(g, w)
+    assert bool(torch.isinf(got[0]).all()) == (empty_share == 1.0)
+
+
+def test_ball_select_rejects_what_the_kernel_does_not_take(device):
+    xyz, orig, start, end, centers = _select_case(device, 1, 3, 0.0, seed=0)
+    before = ball_select.launches
+    for args in ((xyz.double(), orig, start, end, centers),
+                 (xyz, orig.long(), start, end, centers),
+                 (xyz, orig, start[..., :2], end, centers),
+                 (xyz, orig, start, end, centers.cpu())):
+        with pytest.raises(ValueError):
+            ball_select(*args, (0.4,), (16,), 192)
+    with pytest.raises(ValueError):
+        ball_select(xyz, orig, start, end, centers, (0.1,) * 5, (4,) * 5, 192)
+    assert ball_select.launches == before
+
+
+def test_grid_ball_query_on_the_card_launches_k5(device, monkeypatch):
+    """The row-run grid path on the card goes through K5 once for all radii
+    and gives what it gives with the plain selection."""
+    rng = np.random.RandomState(3)
+    src = rng.uniform((0, -8, -2), (16, 8, 2), (2, 5000, 3)).astype(np.float32)
+    centers = rng.uniform((0, -8, -2), (16, 8, 2), (2, 300, 3)).astype(np.float32)
+    num = torch.tensor([5000, 4100], dtype=torch.int32, device=device)
+    src_t, ctr_t = (torch.from_numpy(a).to(device) for a in (src, centers))
+    valid = torch.from_numpy(rng.rand(2, 300) > 0.3).to(device)
+    knobs = pointnet2.PointOpKnobs(bq_grid=((0.0, -8.0, -2.0, 16.0, 8.0, 2.0), 64))
+    before = ball_select.launches
+    got = pointnet2.ball_query_multi((0.8, 1.6), (16, 32), src_t, num, ctr_t,
+                                     valid, knobs=knobs)
+    assert ball_select.launches == before + 1
+    monkeypatch.setattr(pointnet2, 'ball_select', ball_select_plain)
+    want = pointnet2.ball_query_multi((0.8, 1.6), (16, 32), src_t, num, ctr_t,
+                                      valid, knobs=knobs)
+    for (gi, ge), (wi, we) in zip(got, want):
+        assert torch.equal(gi, wi) and torch.equal(ge, we)
+    assert bool(got[0][1][~valid].all()) and not bool(got[1][1][valid].all())

@@ -79,3 +79,27 @@ def test_dataset_info_matches_jax_dataset():
                                   batch_size=1, training=False, num_scenes=1)
     assert dataset_info(cfg_from_yaml_file(path).DATA_CONFIG) \
         == dataset.dataset_info
+
+
+@pytest.mark.parametrize('max_points', [20000, 3000], ids=['padded', 'cut'])
+def test_build_batch_pads_raw_points_as_the_data_processor(max_points):
+    """With max_points (detectors that read raw points) the batch carries
+    the in-range cloud in its order, zero-padded or cut, as the JAX
+    package's eval DataProcessor leaves it."""
+    from lidardetection_tpu.config import cfg_from_yaml_file as jax_cfg
+    from lidardetection_tpu.datasets.processor.data_processor import DataProcessor
+
+    data_cfg = jax_cfg('tools/cfgs/kitti_models/pv_rcnn.yaml').DATA_CONFIG
+    vox = data_cfg.DATA_PROCESSOR[-1]
+    processor = DataProcessor(data_cfg.DATA_PROCESSOR, PC_RANGE, training=False,
+                              max_points=max_points)
+    clouds = [_cloud(5), _cloud(6)]
+    batch = build_batch(clouds, PC_RANGE, vox.VOXEL_SIZE,
+                        vox.MAX_POINTS_PER_VOXEL, 4000, max_points=max_points)
+    assert batch['points'].shape == (2, max_points, 4)
+    for i, points in enumerate(clouds):
+        want = processor.forward({'points': points.copy()})
+        np.testing.assert_array_equal(batch['points'][i], want['points'])
+        assert batch['num_points'][i] == want['num_points']
+    assert 'points' not in build_batch(clouds, PC_RANGE, vox.VOXEL_SIZE,
+                                       vox.MAX_POINTS_PER_VOXEL, 4000)
