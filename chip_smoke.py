@@ -18,8 +18,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
   5. K3 against its plain version on the card at the SECOND path's shapes:
      the twelve convolutions of the full second.yaml backbone, with the
      rulebooks and activations of real voxelized scans (V = 40000), in
-     bf16 and f32, B = 1 and B = 4, one rulebook with shuffled rows, and
-     K2 at SECOND's shape (C = 128, 2 x 200 x 176 slots); their times;
+     bf16 and f32, B = 1 and B = 4, the same bits on a second run, one
+     rulebook with shuffled rows, and K2 at SECOND's shape (C = 128, 2 x
+     200 x 176 slots); their times, and per layer the share of (tile,
+     offset) pairs and 16-row fragments K3 skips and its rate on hits;
   6. and 7. phases 3 and 4 for the full tools/cfgs/kitti_models/second.yaml;
   8. train through ``train.Trainer`` at full width (the yaml's train cap of
      16000 voxels, B = 4, bf16, adam_onecycle), PointPillar then SECOND: 2
@@ -29,7 +31,10 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      memory; one SECOND step split by forward / backward / optimizer;
   9. K4 against its plain version on the (f, rulebook, g) of the 12 sparse
      layers of one SECOND training step (bf16 and f32, B = 1 and B = 4, one
-     rulebook with shuffled rows, the same bits on a second run), its times;
+     rulebook with shuffled rows, the same bits on a second run), its times,
+     row splits, workspace bytes and rate on hits per layer; K3 at the
+     step's shape (its 12 forward and 7 df launches) against its plain
+     version, and its times;
      the K3 input gradient of a 64 -> 64 submanifold layer against autograd
      of the plain version; K2's backward against autograd of its plain
      version;
@@ -269,6 +274,58 @@ def record_sparse_layers(model, run):
     return records, out
 
 
+def conv_timing(torch, n, what, f, rb, w, valid):
+    """K3 on one layer's inputs, held against its plain version (within
+    1e-4 of max|want|): its time, the plain version's, the bound, what the
+    tensor-core path skips (ops/sparse_conv_cuda.py conv_tile_skips) and
+    the rate on hits."""
+    from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
+        conv_tile_skips, rulebook_conv, rulebook_conv_plain,
+    )
+
+    fd, wd = f.contiguous(), w.contiguous()
+    rb, valid = rb.contiguous(), valid.contiguous()
+    got = rulebook_conv(fd, rb, wd, valid)
+    want = rulebook_conv_plain(fd, rb, wd, valid)
+    err, top = float((got - want).abs().max()), float(want.abs().max())
+    check(top > 0 and err <= 1e-4 * top and bool(torch.isfinite(got).all()),
+          f'rulebook_conv {n} {what}: max error {err} against plain '
+          f'(max|want| {top})')
+    k, c_in, c_out = wd.shape
+    hit = (rb >= 0) & (rb < fd.shape[1]) & valid[..., None]
+    hits, live = int(hit.sum()), int(valid.sum())
+    flat = rb.long() + torch.arange(rb.shape[0], device=rb.device)[
+        :, None, None] * fd.shape[1]
+    rows_read = int(torch.unique(flat[hit]).numel())
+    n_bytes = (live * k * 4 + valid.numel() + rows_read * c_in * fd.element_size()
+               + wd.numel() * wd.element_size() + valid.numel() * c_out * 4)
+    n_flop = 2 * hits * c_in * c_out
+    rate = BF16_FLOP_PER_S if fd.dtype == torch.bfloat16 else F32_FLOP_PER_S
+    skips = conv_tile_skips(rb, valid, fd.shape[1])
+    row = {'layer': n, 'K': k, 'C_in': c_in, 'C_out': c_out,
+           'dtype': str(fd.dtype)[6:], 'live_rows': live, 'hits': hits,
+           'bytes': n_bytes, 'flop': n_flop, 'max_abs_err': err,
+           'pairs_skipped': skips['pairs_skipped'] / max(skips['pairs'], 1),
+           'fragments_skipped': skips['fragments_skipped']
+           / max(skips['fragments'], 1),
+           'ms': cuda_ms(lambda: rulebook_conv(fd, rb, wd, valid), torch),
+           'plain_ms': cuda_ms(
+               lambda: rulebook_conv_plain(fd, rb, wd, valid), torch),
+           'bytes_ms': n_bytes / HBM_BYTES_PER_S * 1e3,
+           'ops_ms': n_flop / rate * 1e3}
+    row['bound_ms'], row['bound_by'] = bound_ms(n_bytes, n_flop, rate)
+    row['tflop_per_s_on_hits'] = n_flop / row['ms'] * 1e-9
+    print(f'rulebook_conv {n} {what} {row["dtype"]} K={k} C {c_in}->{c_out}: '
+          f'{live} live rows, {hits} hits ({hits / max(live * k, 1):.3f} of '
+          f'entries), max|kernel-plain| {err:.3g} (max|want| {top:.3g}), '
+          f'(tile, offset) pairs skipped {row["pairs_skipped"]:.3f} '
+          f'of {skips["pairs"]}, fragments skipped {row["fragments_skipped"]:.3f}, '
+          f'device {row["ms"]:.4f} ms ({row["tflop_per_s_on_hits"]:.2f} TFLOP/s '
+          f'on hits), plain {row["plain_ms"]:.4f} ms, bound {row["bound_ms"]:.4f} '
+          f'ms ({row["bound_by"]}; {n_bytes} bytes, {n_flop} FLOP)', flush=True)
+    return row
+
+
 def sparse_kernel_phase(torch, det):
     """K3 against its plain version at the SECOND path's shapes: every
     convolution of a forward over real scans, then its time per layer; K2
@@ -295,7 +352,10 @@ def sparse_kernel_phase(torch, det):
             for b in (1, 4):
                 got = rulebook_conv(fd[:b], rb[:b], wd, valid[:b])
                 want = rulebook_conv_plain(fd[:b], rb[:b], wd, valid[:b])
+                again = rulebook_conv(fd[:b], rb[:b], wd, valid[:b])
                 torch.cuda.synchronize()
+                check(torch.equal(got, again), f'rulebook_conv layer {n} B={b} '
+                      f'{dtype}: the same bits on a second run')
                 e, top = float((got - want).abs().max()), float(want.abs().max())
                 check(top > 0 and e <= 1e-4 * top and bool(torch.isfinite(got).all()),
                       f'rulebook_conv layer {n} B={b} {dtype}: max error {e} '
@@ -324,39 +384,12 @@ def sparse_kernel_phase(torch, det):
     err = max(err, e)
 
     # times at the main path's shape: one request (B = 1), the model's dtype
-    shapes, total = [], {'ms': 0.0, 'plain_ms': 0.0, 'bytes_ms': 0.0,
-                         'ops_ms': 0.0}
-    for n, (layer, f, valid, rb) in enumerate(records, 1):
-        dtype = layer.dtype or torch.float32
-        fd = f[:1].to(dtype).contiguous()
-        wd = layer.kernel.detach().to(dtype).contiguous()
-        rb1, v1 = rb[:1].contiguous(), valid[:1].contiguous()
-        k, c_in, c_out = wd.shape
-        hit = (rb1 >= 0) & (rb1 < fd.shape[1]) & v1[..., None]
-        hits, live = int(hit.sum()), int(v1.sum())
-        rows_read = int(torch.unique(rb1[hit]).numel())
-        n_bytes = (live * k * 4 + v1.numel() + rows_read * c_in * fd.element_size()
-                   + wd.numel() * wd.element_size() + v1.numel() * c_out * 4)
-        n_flop = 2 * hits * c_in * c_out
-        rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
-        row = {'layer': n, 'K': k, 'C_in': c_in, 'C_out': c_out,
-               'dtype': str(dtype)[6:], 'live_rows': live, 'hits': hits,
-               'bytes': n_bytes, 'flop': n_flop,
-               'ms': cuda_ms(lambda: rulebook_conv(fd, rb1, wd, v1), torch),
-               'plain_ms': cuda_ms(
-                   lambda: rulebook_conv_plain(fd, rb1, wd, v1), torch)}
-        row['bound_ms'], row['bound_by'] = bound_ms(n_bytes, n_flop, rate)
-        total['ms'] += row['ms']
-        total['plain_ms'] += row['plain_ms']
-        total['bytes_ms'] += n_bytes / HBM_BYTES_PER_S * 1e3
-        total['ops_ms'] += n_flop / rate * 1e3
-        shapes.append(row)
-        print(f'rulebook_conv layer {n:2d} B=1 {row["dtype"]} K={k} C '
-              f'{c_in}->{c_out}: {live} live rows, {hits} hits '
-              f'({hits / max(live * k, 1):.3f} of entries), device '
-              f'{row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, bound '
-              f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}; {n_bytes} bytes, '
-              f'{n_flop} FLOP)', flush=True)
+    shapes = [conv_timing(torch, n, 'B=1', f[:1].to(layer.dtype or torch.float32),
+                          rb[:1], layer.kernel.detach().to(
+                              layer.dtype or torch.float32), valid[:1])
+              for n, (layer, f, valid, rb) in enumerate(records, 1)]
+    total = {key: sum(r[key] for r in shapes) for key in
+             ('ms', 'plain_ms', 'bytes_ms', 'ops_ms')}
     bound = sum(r['bound_ms'] for r in shapes)
     print(f'rulebook_conv, the 12 launches of a request: device '
           f'{total["ms"]:.4f} ms, plain {total["plain_ms"]:.4f} ms, bound '
@@ -734,15 +767,22 @@ def step_split(torch, trainer, batch, repeats=3):
 
 def record_weight_gradients(trainer, batch):
     """One forward and backward of the SECOND trainer's model: the sparse
-    layers' forward inputs (call order) and the (f, rulebook, g) that each
-    layer's backward hands to K4 (call order reversed to layer order)."""
+    layers' forward inputs (call order), the (f, rulebook, g) that each
+    layer's backward hands to K4 (call order reversed to layer order) and
+    the (f, rulebook, W, valid) of every K3 call of the step (12 forward,
+    then 7 submanifold df in backward order)."""
     from lidardetection_tpu_torch.ops import sparse
 
-    calls, real = [], sparse.rulebook_conv_dw
+    calls, convs = [], []
+    real, real_conv = sparse.rulebook_conv_dw, sparse.rulebook_conv
 
     def recorder(f, rb, g, valid=None):
         calls.append((f.detach(), rb, g.detach()))
         return real(f, rb, g, valid)
+
+    def conv_recorder(f, rb, w, valid=None):
+        convs.append((f.detach(), rb, w.detach(), valid))
+        return real_conv(f, rb, w, valid)
 
     def run():
         for p in trainer.model.parameters():
@@ -750,12 +790,12 @@ def record_weight_gradients(trainer, batch):
         loss, _ = trainer.model.loss(trainer.model(batch))
         loss.backward()
 
-    sparse.rulebook_conv_dw = recorder
+    sparse.rulebook_conv_dw, sparse.rulebook_conv = recorder, conv_recorder
     try:
         layers, _ = record_sparse_layers(trainer.model, run)
     finally:
-        sparse.rulebook_conv_dw = real
-    return layers, calls[::-1]
+        sparse.rulebook_conv_dw, sparse.rulebook_conv = real, real_conv
+    return layers, calls[::-1], convs
 
 
 def weight_gradient_phase(torch, trainer, batch, backward_ms):
@@ -768,12 +808,14 @@ def weight_gradient_phase(torch, trainer, batch, backward_ms):
         scatter_rows, scatter_rows_plain,
     )
     from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
-        rulebook_conv_dw, rulebook_conv_dw_plain, rulebook_conv_plain,
+        DW_WORKSPACE_BYTES, dw_split_plan, rulebook_conv_dw,
+        rulebook_conv_dw_plain, rulebook_conv_plain,
     )
 
-    layers, calls = record_weight_gradients(trainer, batch)
-    check(len(layers) == len(calls) == 12,
-          f'12 sparse layers and 12 weight gradients ({len(layers)}, {len(calls)})')
+    layers, calls, convs = record_weight_gradients(trainer, batch)
+    check(len(layers) == len(calls) == 12 and len(convs) == 12 + 7,
+          f'12 sparse layers, 12 weight gradients and 19 K3 calls '
+          f'({len(layers)}, {len(calls)}, {len(convs)})')
 
     # f32 sums of up to ~1e6 exact products in another order (the kernel
     # adds rows in ascending order chunk by chunk, the plain version sums
@@ -882,14 +924,21 @@ def weight_gradient_phase(torch, trainer, batch, backward_ms):
         n_flop = 2 * hits * c_in * c_out
         # the card's peak for the inputs' type, as for K3
         rate = BF16_FLOP_PER_S if f.dtype == torch.bfloat16 else F32_FLOP_PER_S
+        n_splits = dw_split_plan(rb.shape[0] * rb.shape[1], k, c_in, c_out)
         row = {'layer': n, 'K': k, 'C_in': c_in, 'C_out': c_out,
                'dtype': str(f.dtype)[6:], 'live_rows': live, 'hits': hits,
-               'bytes': n_bytes, 'flop': n_flop,
+               'bytes': n_bytes, 'flop': n_flop, 'splits': n_splits,
+               'workspace_bytes': n_splits * k * c_in * c_out * 4,
+               # the (row, offset) entries that are never read or multiplied
+               'entries_skipped': 1 - hits / max(rb.shape[0] * rb.shape[1] * k, 1),
                'ms': cuda_ms(lambda: rulebook_conv_dw(f, rb, g), torch),
                'plain_ms': cuda_ms(
                    lambda: rulebook_conv_dw_plain(f, rb, g), torch, iters=10,
                    warmup=2)}
+        check(row['workspace_bytes'] <= DW_WORKSPACE_BYTES,
+              f'K4 layer {n}: workspace {row["workspace_bytes"]} bytes')
         row['bound_ms'], row['bound_by'] = bound_ms(n_bytes, n_flop, rate)
+        row['tflop_per_s_on_hits'] = n_flop / row['ms'] * 1e-9
         total['ms'] += row['ms']
         total['plain_ms'] += row['plain_ms']
         total['bytes_ms'] += n_bytes / HBM_BYTES_PER_S * 1e3
@@ -897,15 +946,34 @@ def weight_gradient_phase(torch, trainer, batch, backward_ms):
         shapes.append(row)
         print(f'rulebook_conv_dw layer {n:2d} B={rb.shape[0]} {row["dtype"]} '
               f'K={k} C {c_in}->{c_out}: {live} live rows, {hits} hits '
-              f'({hits / max(live * k, 1):.3f} of entries), device '
-              f'{row["ms"]:.4f} ms, plain {row["plain_ms"]:.4f} ms, bound '
-              f'{row["bound_ms"]:.4f} ms ({row["bound_by"]}; {n_bytes} bytes, '
-              f'{n_flop} FLOP)', flush=True)
+              f'({hits / max(live * k, 1):.3f} of entries; entries skipped '
+              f'{row["entries_skipped"]:.3f}), {n_splits} splits, workspace '
+              f'{row["workspace_bytes"]} bytes, device {row["ms"]:.4f} ms '
+              f'({row["tflop_per_s_on_hits"]:.2f} TFLOP/s on hits), plain '
+              f'{row["plain_ms"]:.4f} ms, bound {row["bound_ms"]:.4f} ms '
+              f'({row["bound_by"]}; {n_bytes} bytes, {n_flop} FLOP)', flush=True)
     bound = sum(r['bound_ms'] for r in shapes)
     print(f'rulebook_conv_dw, the 12 launches of a step: device '
           f'{total["ms"]:.4f} ms, plain {total["plain_ms"]:.4f} ms, bound '
           f'{bound:.4f} ms; {total["ms"] / backward_ms:.4f} of the backward '
-          f'({backward_ms:.2f} ms)', flush=True)
+          f'({backward_ms:.2f} ms); largest workspace '
+          f'{max(r["workspace_bytes"] for r in shapes)} bytes', flush=True)
+
+    # K3 at a step's shape (B = 4, the train cap), held against its plain
+    # version: the 12 forward and the 7 submanifold df launches of one step,
+    # the model's dtype
+    names = [f'forward {n}' for n in range(1, 13)] + \
+        [f'df {n}' for n in range(1, 8)]
+    step_rows = [conv_timing(torch, name, f'B={f.shape[0]}', f, rb, w, valid)
+                 for name, (f, rb, w, valid) in zip(names, convs)]
+    k3_step = {key: sum(r[key] for r in step_rows)
+               for key in ('ms', 'plain_ms', 'bound_ms')}
+    print(f'rulebook_conv, the 19 launches of a SECOND step (B={TRAIN_BATCH}): '
+          f'device {k3_step["ms"]:.4f} ms (12 forward '
+          f'{sum(r["ms"] for r in step_rows[:12]):.4f}, 7 df '
+          f'{sum(r["ms"] for r in step_rows[12:]):.4f}), plain '
+          f'{k3_step["plain_ms"]:.4f} ms, bound {k3_step["bound_ms"]:.4f} ms',
+          flush=True)
     return {'name': 'rulebook_conv_dw', 'route': 'cuda',
             'source': 'lidardetection_tpu_torch/csrc/sparse_conv_dw.cu',
             'replaces': 'lidardetection_tpu/ops/sparse_conv_tpu.py:490',
@@ -918,7 +986,9 @@ def weight_gradient_phase(torch, trainer, batch, backward_ms):
             'bound_by': 'bytes' if total['bytes_ms'] >= total['ops_ms']
             else 'operations',
             'library_ms': None, 'per_step_ms': total['ms'],
-            'share_of_backward': total['ms'] / backward_ms, 'layers': shapes}
+            'share_of_backward': total['ms'] / backward_ms, 'layers': shapes}, \
+        {'per_step_ms': k3_step['ms'], 'per_step_plain_ms': k3_step['plain_ms'],
+         'per_step_bound_ms': k3_step['bound_ms'], 'step_layers': step_rows}
 
 
 def record_ball_selects(run):
@@ -1261,7 +1331,9 @@ def main():
           f'(nvcc {" ".join(_build.NVCC_FLAGS)})', flush=True)
     for name, text in messages.items():
         for line in text.splitlines():
-            if 'registers' in line or 'spill' in line:
+            # which kernel each line is about, for the two sparse-conv sources
+            if 'registers' in line or 'spill' in line or (
+                    name.startswith('sparse_conv') and 'Compiling entry' in line):
                 print(f'  {name}.cu: {line.strip()}', flush=True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1337,7 +1409,9 @@ def main():
     trainer, batches, launches_train_second = trained(
         CFG_SECOND, SEED + 400, dict(zip(wrappers, (0, 1, 12 + 7, 12, 0))))
     split = step_split(torch, trainer, batches[-1])
-    k4 = weight_gradient_phase(torch, trainer, batches[-1], split['backward'])
+    k4, k3_step = weight_gradient_phase(torch, trainer, batches[-1],
+                                        split['backward'])
+    k3.update(k3_step)
     compare_train_phase(torch, trainer, CFG_SECOND, batches[-1], wrappers)
 
     print('== under the profiler ==', flush=True)

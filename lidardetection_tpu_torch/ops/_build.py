@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for sm_90a into ``build/lib<name>-<hash>.so`` at the repository root, then
-loaded with ``ctypes``. The hash covers the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded. A build
+loaded with ``ctypes``. The hash covers the source, every shared header
+``csrc/*.cuh`` (which any source may include) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. A build
 writes to a temporary name and renames it, so concurrent processes cannot
 load a half-written library.
 """
@@ -32,10 +33,11 @@ def _nvcc():
 
 
 def _library_path(name):
-    src = CSRC / f'{name}.cu'
-    digest = hashlib.sha1(src.read_bytes()
-                          + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f'lib{name}-{digest}.so'
+    digest = hashlib.sha1((CSRC / f'{name}.cu').read_bytes())
+    for header in sorted(CSRC.glob('*.cuh')):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(' '.join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:12]}.so'
 
 
 def build(names=KERNELS):

@@ -19,9 +19,10 @@ callers multiply by the mask afterwards.
 Bound on the H100, by the roofline at the SECOND backbone's shapes: memory
 bytes in bf16 (the live rulebook rows, the input rows they name and the
 weights read once, the output written once), operations in f32 on the
-wider layers (2 * hits * C_in * C_out on the f32 units). This first
-version is far from both: it multiplies on the f32 FMA units out of shared
-memory, misses included (the csrc note says how).
+wider layers (2 * hits * C_in * C_out on the f32 units). The bf16 kernel
+multiplies on the tensor cores and skips every miss: an offset with no hit
+in a 128-row tile costs nothing, a 16-row fragment with no hit no product
+(the csrc note says how); `conv_tile_skips` counts both for a rulebook.
 
 ``rulebook_conv`` takes the plain PyTorch version for tensors on the CPU
 and launches the kernel for tensors on a CUDA device;
@@ -35,8 +36,10 @@ of the same file:
 with g (B, V_out, C_out) already masked by the caller and taken in the
 dtype of f, products summed in f32, dW (K, C_in, C_out) f32. It gathers by
 index, takes any rulebook, and adds the rows in a fixed order (csrc note),
-so it returns the same bits from run to run. CPU tensors take
-``rulebook_conv_dw_plain``; ``rulebook_conv_dw.launches`` counts the
+so it returns the same bits from run to run. The rows are cut into splits
+that `dw_split_plan` picks from the shape alone; each split's partial dW
+goes to a workspace of at most 16 MB, summed in split order. CPU tensors
+take ``rulebook_conv_dw_plain``; ``rulebook_conv_dw.launches`` counts the
 launches. The input gradient of the convolution is K3 again, over a
 transposed rulebook (ops/sparse.py).
 """
@@ -165,14 +168,77 @@ def rulebook_conv(features, rulebook, weights, valid_mask=None):
 rulebook_conv.launches = 0
 
 
-# Output rows a block of K4 sums; a multiple of 256. A block's time follows
-# its hits, and the centre offset of a submanifold rulebook hits on every
-# live row, so the chunk's size sets the kernel's critical path: on an H100
-# (700 W) the 12 layers of a SECOND step (B = 4) took 3.65 ms at 2048 rows,
-# 2.36 at 1024, 1.75 at 512 and 1.71 at 256 (chip_smoke.py's K4 timing with
-# this constant set to each; the workspace doubles at each halving).
-DW_ROWS_PER_CHUNK = 512
+# K4's row splits (csrc/sparse_conv_dw.cu): the splits take groups of
+# DW_GROUP_ROWS rows in turn, a block looks up DW_WINDOW_ROWS rows at once;
+# as many splits as the workspace (at most DW_WORKSPACE_BYTES) and one
+# window a split allow, up to DW_BLOCKS blocks: short splits keep the block
+# that holds the centre offset of a submanifold layer (a hit on every live
+# row of its split) short, but every block also walks its split's rulebook
+# column and writes a partial tile, so more blocks cost more.
+DW_BLOCKS = 8 * 132  # eight blocks for each of the H100's 132 SMs
+DW_GROUP_ROWS = 4
+DW_WINDOW_ROWS = 512
+DW_WORKSPACE_BYTES = 16_000_000
 _DW_GATHER_ROWS = 4096    # rows the plain version gathers at once
+
+
+def _dw_tile(c_in, c_out):
+    """K4's block tile of dW (csrc note): 16, 32 or 64 rows, the least that
+    covers C_in, and as many columns, or twice as many where C_out is
+    wider."""
+    ct = 16 if c_in <= 16 else 32 if c_in <= 32 else 64
+    return ct, 2 * ct if c_out > ct else ct
+
+
+def dw_split_plan(n_rows, k, c_in, c_out):
+    """How many splits K4 cuts n_rows output rows into.
+
+    The rows are cut into groups of DW_GROUP_ROWS; split s takes groups
+    s, s + n_splits, s + 2 * n_splits, ..., so every row falls in one split,
+    each split walks its rows in ascending order, and the padding rows at
+    the end of each sample spread evenly over the splits. A block takes one
+    kernel offset of one split and one dW tile; the number of splits gives
+    at most DW_BLOCKS such blocks, at least DW_WINDOW_ROWS rows a split (a
+    block's window), and an f32 workspace (n_splits, K, C_in, C_out) of at
+    most DW_WORKSPACE_BYTES. It depends on the shape alone, never on the
+    data.
+    """
+    ct, cot = _dw_tile(c_in, c_out)
+    blocks = k * -(-c_in // ct) * -(-c_out // cot)
+    return min(max(1, DW_BLOCKS // blocks), max(1, n_rows // DW_WINDOW_ROWS),
+               max(1, DW_WORKSPACE_BYTES // (k * c_in * c_out * 4)))
+
+
+def conv_tile_skips(rulebook, valid_mask, v_in, tile=128, fragment=16):
+    """What K3's bf16 kernel skips on a rulebook: its blocks own `tile`
+    output rows (batch and row flattened), its warps `fragment` rows each.
+
+    Returns a dict: `tiles`, the tiles with a valid row (the others write
+    zeros and stop); `pairs` and `pairs_skipped`, the (tile, offset) pairs
+    of those tiles and the ones with no hit (no weight load, no gather, no
+    product); `fragments` and `fragments_skipped`, the (fragment, offset)
+    pairs of the pairs that are not skipped and those with no hit (no
+    product). rulebook (B, V_out, K); valid_mask (B, V_out) bool or None.
+    """
+    k = rulebook.shape[-1]
+    hit = (rulebook >= 0) & (rulebook < v_in)
+    live = torch.ones(rulebook.shape[:2], dtype=torch.bool,
+                      device=rulebook.device)
+    if valid_mask is not None:
+        live = valid_mask.bool()
+        hit = hit & live[..., None]
+    hit, live = hit.reshape(-1, k), live.reshape(-1)
+    pad = -hit.shape[0] % tile
+    hit = torch.cat([hit, hit.new_zeros((pad, k))])
+    live = torch.cat([live, live.new_zeros(pad)])
+    frag_hit = hit.view(-1, tile // fragment, fragment, k).any(2)
+    tile_hit = frag_hit.any(1)                      # (tiles, K)
+    kept = live.view(-1, tile).any(1)
+    pairs = tile_hit[kept]
+    frags = frag_hit[kept].transpose(1, 2)[pairs]   # (pairs kept, fragments)
+    return {'tiles': int(kept.sum()), 'pairs': pairs.numel(),
+            'pairs_skipped': int((~pairs).sum()), 'fragments': frags.numel(),
+            'fragments_skipped': int((~frags).sum())}
 
 
 def rulebook_conv_dw_plain(features, rulebook, grad, valid=None):
@@ -245,16 +311,15 @@ def rulebook_conv_dw(features, rulebook, grad, valid=None):
         return out
     if b * v_out * v_in == 0:
         return out.zero_()
-    n_chunks = -(-b * v_out // DW_ROWS_PER_CHUNK)
-    workspace = torch.empty((n_chunks, k, c_in, c_out), dtype=torch.float32,
+    n_splits = dw_split_plan(b * v_out, k, c_in, c_out)
+    workspace = torch.empty((n_splits, k, c_in, c_out), dtype=torch.float32,
                             device=features.device)
     with torch.cuda.device(features.device):
         rc = _dw_launcher()(
             features.data_ptr(), rulebook.data_ptr(), grad.data_ptr(),
             None if valid is None else valid.data_ptr(),
             workspace.data_ptr(), out.data_ptr(), b * v_out, v_out, v_in, k,
-            c_in, c_out, DW_ROWS_PER_CHUNK,
-            int(features.dtype == torch.bfloat16),
+            c_in, c_out, n_splits, int(features.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(

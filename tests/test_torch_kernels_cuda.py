@@ -17,8 +17,8 @@ from lidardetection_tpu_torch.ops.scatter_cuda import (
 )
 from lidardetection_tpu_torch.ops.select_cuda import ball_select, ball_select_plain
 from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
-    rulebook_conv, rulebook_conv_dw, rulebook_conv_dw_plain,
-    rulebook_conv_plain,
+    DW_WORKSPACE_BYTES, dw_split_plan, rulebook_conv, rulebook_conv_dw,
+    rulebook_conv_dw_plain, rulebook_conv_plain,
 )
 from lidardetection_tpu_torch.ops.vfe_cuda import pillar_vfe, pillar_vfe_plain
 
@@ -80,6 +80,8 @@ def test_scatter_rows_kernel_matches_plain(device, dtype, c):
     (27, 4, 16), (27, 16, 32), (27, 64, 64), (3, 64, 128),  # the backbone's
     (27, 70, 100),  # channel counts that fill no tile
     (40, 5, 200),   # more offsets than one staged chunk, two column blocks
+    (27, 16, 16), (27, 64, 32),  # the submanifold df shapes
+    (70, 64, 64),   # more offsets than the tensor-core path stages at once
 ])
 def test_rulebook_conv_kernel_matches_plain(device, dtype, k, c_in, c_out):
     rng = np.random.RandomState(k + c_in)
@@ -104,6 +106,79 @@ def test_rulebook_conv_kernel_matches_plain(device, dtype, k, c_in, c_out):
         # the same exact products, summed in f32 in another order
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-4 * float(want.abs().max()))
+        # the order is fixed by the shape: the same bits on every run
+        assert torch.equal(got, rulebook_conv(f, rule_t, w, mask))
+
+
+def _sparse_hits_case(device, dtype, k, c_in, c_out, b=3, v_in=700,
+                      v_out=1000):
+    """A rulebook whose hits are rare and clustered: rows 32-47 of every
+    128-row tile (one 16-row fragment) hit offset 1, a few single rows hit
+    offset k - 1, and no row hits offset 0 or any other."""
+    rng = np.random.RandomState(c_in + c_out)
+    rule = np.full((b, v_out, k), v_in, np.int32)
+    flat = np.arange(b * v_out).reshape(b, v_out)
+    frag = (flat % 128 >= 32) & (flat % 128 < 48)
+    rule[..., 1] = np.where(frag, rng.randint(0, v_in, (b, v_out)), v_in)
+    lone = rng.rand(b, v_out) < 0.01
+    rule[..., k - 1] = np.where(lone, rng.randint(0, v_in, (b, v_out)), -1)
+    valid = rng.rand(b, v_out) < 0.9
+    f = torch.from_numpy(rng.randn(b, v_in, c_in)).to(device, dtype)
+    return f, torch.from_numpy(rule).to(device), torch.from_numpy(valid).to(device)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('c_in,c_out', [(4, 16), (16, 32), (64, 64), (5, 24),
+                                        (70, 100), (64, 128)])
+def test_rulebook_conv_skips_missing_offsets_and_fragments(device, dtype, c_in,
+                                                           c_out):
+    """Only some 16-row fragments of a tile hit, and offsets that no tile
+    hits; v_out = 1000 is no multiple of the tile, so tiles cross samples."""
+    k = 27
+    f, rule, valid = _sparse_hits_case(device, dtype, k, c_in, c_out)
+    w = torch.from_numpy(np.random.RandomState(1).randn(k, c_in, c_out) * 0.1
+                         ).to(device, dtype)
+    for mask in (valid, None):
+        got = rulebook_conv(f, rule, w, mask)
+        want = rulebook_conv_plain(f, rule, w, mask)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * float(want.abs().max()))
+        assert torch.equal(got, rulebook_conv(f, rule, w, mask))
+        rows_hit = ((rule >= 0) & (rule < f.shape[1])).any(-1)
+        if mask is not None:
+            rows_hit &= mask
+        assert bool((got[~rows_hit] == 0).all()) and bool(got[rows_hit].abs().max() > 0)
+
+
+@pytest.mark.parametrize('c_in', [16, 64])
+def test_rulebook_conv_takes_unaligned_rows(device, c_in):
+    """Features and weights that start 2 bytes past an aligned address (a
+    contiguous view at an odd offset) take the element-wise staging path
+    of the same kernel."""
+    rng = np.random.RandomState(c_in)
+    b, v_in, v_out, k, c_out = 2, 300, 500, 27, 32
+    rule = rng.randint(0, v_in, (b, v_out, k)).astype(np.int32)
+    rule[rng.rand(b, v_out, k) < 0.6] = v_in
+    rule_t = torch.from_numpy(rule).to(device)
+    f0 = torch.from_numpy(rng.randn(b, v_in, c_in)).to(device, torch.bfloat16)
+    w0 = torch.from_numpy(rng.randn(k, c_in, c_out) * 0.1).to(device,
+                                                              torch.bfloat16)
+    f = torch.empty(f0.numel() + 1, dtype=f0.dtype, device=device)[1:].view(
+        f0.shape).copy_(f0)
+    w = torch.empty(w0.numel() + 1, dtype=w0.dtype, device=device)[1:].view(
+        w0.shape).copy_(w0)
+    assert f.data_ptr() % 4 == 2 and f.is_contiguous()
+    got = rulebook_conv(f, rule_t, w)
+    want = rulebook_conv_plain(f0, rule_t, w0)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    g = torch.from_numpy(rng.randn(b, v_out, c_out)).to(device, torch.bfloat16)
+    g1 = torch.empty(g.numel() + 1, dtype=g.dtype, device=device)[1:].view(
+        g.shape).copy_(g)
+    want = rulebook_conv_dw_plain(f0, rule_t, g)
+    torch.testing.assert_close(rulebook_conv_dw(f, rule_t, g1), want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
 
 
 def test_rulebook_conv_rejects_what_the_kernel_does_not_take(device):
@@ -153,6 +228,48 @@ def test_rulebook_conv_dw_kernel_matches_plain(device, dtype, k, c_in, c_out):
                                    atol=1e-4 * float(want.abs().max()))
         # rows are added in a fixed order: the same bits on every run
         assert torch.equal(got, rulebook_conv_dw(f, rule, g, mask))
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('c_in,c_out', [(4, 16), (16, 32), (64, 64), (5, 24)])
+def test_rulebook_conv_dw_sparse_hits(device, dtype, c_in, c_out):
+    """Rare, clustered hits (a batch of hit rows far from a multiple of 16)
+    and offsets that no row hits."""
+    k = 27
+    f, rule, valid = _sparse_hits_case(device, dtype, k, c_in, c_out)
+    g = torch.from_numpy(np.random.RandomState(2).randn(
+        *rule.shape[:2], c_out)).to(device, dtype)
+    got = rulebook_conv_dw(f, rule, g, valid)
+    want = rulebook_conv_dw_plain(f, rule, g, valid)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    assert torch.equal(got, rulebook_conv_dw(f, rule, g, valid))
+    assert bool((got[0] == 0).all()) and bool((got[2:k - 1] == 0).all())
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('k,c_in,c_out', [(3, 64, 128), (27, 32, 32),
+                                          (27, 64, 64)])
+def test_rulebook_conv_dw_over_many_splits(device, dtype, k, c_in, c_out):
+    """A step-sized row count: many row splits, summed in split order, the
+    workspace within its bound and the same bits on a second run."""
+    f, rule, g, valid = _dw_case(device, dtype, k, c_in, c_out, b=4,
+                                 v_in=6000, v_out=8000)
+    n_splits = dw_split_plan(4 * 8000, k, c_in, c_out)
+    ws_bytes = n_splits * k * c_in * c_out * 4
+    assert n_splits > 1 and ws_bytes <= DW_WORKSPACE_BYTES
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = rulebook_conv_dw(f, rule, g, valid)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    assert peak <= ws_bytes + got.numel() * 4 + (4 << 20)
+    want = rulebook_conv_dw_plain(f, rule, g, valid)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    assert torch.equal(got, rulebook_conv_dw(f, rule, g, valid))
 
 
 def test_rulebook_conv_dw_spans_chunks_and_casts_grad(device):
