@@ -4,17 +4,21 @@ SECOND, serving and training; PV-RCNN serving.
     python3 chip_smoke.py        # from the repository root, one card
 
 Phases, each of which raises on failure (non-zero exit, no result line):
-  1. build the kernels of csrc/ with nvcc (one nvcc per source, together);
+  1. build the kernels of csrc/ with nvcc (one nvcc per source, together),
+     and read the timing floor (a one-element kernel under ``cuda_ms``);
   2. K1 and K2 against their plain PyTorch versions on the card, at the
      PointPillar path's shapes (40000-pillar table of voxelized synthetic
-     scenes, P = 32, C = 64, 496 x 432 canvas, B = 1 and B = 4), and their
+     scenes, P = 32, C = 64, 496 x 432 canvas, B = 1 and B = 4; K2 also on
+     a sample of padding alone and one that hits every slot), and their
      times beside the bound, the plain version's time and a library call's;
   3. serve requests through ``serve.Detector`` on the full
      tools/cfgs/kitti_models/pointpillar.yaml (bf16 compute, random
      weights from a seed, class-logit bias 0 so NMS sees live candidates),
      with every kernel's launch count set to 0 just before and read after;
   4. the same weights and clouds in f32 on the card (kernels) and on the
-     CPU (plain versions): head outputs and kept detections must agree;
+     CPU (plain versions): head outputs and kept detections must agree
+     (the TF32 flags are left as PyTorch sets them: the port holds f32
+     as f32 itself);
   5. K3 against its plain version on the card at the SECOND path's shapes:
      the twelve convolutions of the full second.yaml backbone, with the
      rulebooks and activations of real voxelized scans (V = 40000), in
@@ -51,13 +55,16 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      apart;
  12. K5 against its plain version on the card on the five sources' (table,
      runs, centres) of a real request at B = 1 and B = 2, with the original
-     indices shuffled, with a third of the centres invalid, and on a cloud
-     whose cells hold more than the 64 cap: bit-equal; its times per source;
+     indices shuffled or descending along each run, with a third of the
+     centres invalid, with nsample 1 and 64, on a cloud whose cells hold
+     more than the 64 cap, and with every candidate of that cloud's runs in
+     radius (more hits than a warp's buffer holds): bit-equal; its times
+     per source, beside each ball query's prep;
  13. one f32 PV-RCNN request on the card with the kernels against the same
      request on the card with the plain versions (only the kernels differ);
  14. one request of each detector and one training step of each trained
      detector under torch.profiler (idle share, top kernels), after every
-     timed phase.
+     timed phase; one K2 call under it: one kernel, no memset.
 The line before the last is the kernels' JSON, preceded by the card's name
 and power limit; the last line is the device JSON.
 """
@@ -138,8 +145,8 @@ def make_clouds(det, n, seed):
 def time_scatter(torch, feats, keys, n_slots):
     """K2 at one request's shape: the kernel's, the plain version's and a
     library call's time (``zeros`` + ``index_put_`` with the kept rows
-    selected beforehand), and the bound: the canvas written once, the keys
-    and the kept rows read once."""
+    selected beforehand), a zero fill of the canvas alone, and the bound:
+    the canvas written once, the keys and the kept rows read once."""
     from lidardetection_tpu_torch.ops.scatter_cuda import (
         scatter_rows, scatter_rows_plain,
     )
@@ -156,8 +163,11 @@ def time_scatter(torch, feats, keys, n_slots):
 
     size = feats.element_size()
     n_bytes = n_slots * c * size + v * 4 + n_kept * c * size
+    canvas = torch.empty((1, n_slots, c), dtype=feats.dtype, device='cuda')
     row = {'shape': f'V={v} C={c} slots={n_slots} kept={n_kept}',
            'ms': cuda_ms(lambda: scatter_rows(feats, keys, n_slots), torch),
+           # a PyTorch fill of the same canvas: the writes alone
+           'fill_ms': cuda_ms(canvas.zero_, torch),
            'plain_ms': cuda_ms(
                lambda: scatter_rows_plain(feats, keys, n_slots), torch),
            'library_ms': cuda_ms(library, torch), 'bytes': n_bytes}
@@ -219,6 +229,19 @@ def pillar_kernel_phase(torch, det):
               f'required: {torch.equal(got, want)})', flush=True)
         check(torch.equal(got, want), f'scatter_rows B={b} bit-exact')
         err['scatter_rows'] = max(err['scatter_rows'], e)
+    # a sample of padding rows alone, and one whose rows hit every slot
+    every = torch.arange(n_slots, device='cuda', dtype=torch.int32)
+    for what, f, k in (
+            ('all padding', feats[:1], torch.full_like(keys[:1], n_slots)),
+            ('every slot hit', torch.randn((1, n_slots, c), generator=g,
+                                           device='cuda').bfloat16(),
+             every[None])):
+        got = scatter_rows(f, k, n_slots)
+        want = scatter_rows_plain(f, k, n_slots)
+        torch.cuda.synchronize()
+        print(f'K2 scatter_rows, {what} (V={k.shape[1]}): bit-exact required: '
+              f'{torch.equal(got, want)}', flush=True)
+        check(torch.equal(got, want), f'scatter_rows {what} bit-exact')
 
     # timings at the main path's shape: one request, B = 1
     a1 = (vox[:1], centers[:1], pb[:1], counts[:1], w4.bfloat16(), shift)
@@ -248,9 +271,30 @@ def pillar_kernel_phase(torch, det):
         call = cuda_ms(calls[k['name']], torch, queued=False)
         print(f'{k["name"]} B=1: device {k["ms"]:.4f} ms (call with host '
               f'overhead {call:.4f} ms), plain {k["plain_ms"]:.4f} ms, '
-              f'library {k["library_ms"]}, bound {k["bound_ms"]:.4f} ms '
+              f'library {k["library_ms"]}, zero fill of the canvas '
+              f'{k.get("fill_ms")}, bound {k["bound_ms"]:.4f} ms '
               f'({nbytes} bytes)', flush=True)
-    return [k1, k2]
+    return [k1, k2], (f1, k1keys, n_slots)
+
+
+def scatter_launch_count(torch, feats, keys, n_slots):
+    """The device work of one K2 call under torch.profiler: exactly one
+    kernel (K2's), no memset and no copy."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lidardetection_tpu_torch.ops.scatter_cuda import scatter_rows
+
+    scatter_rows(feats, keys, n_slots)  # allocator warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        scatter_rows(feats, keys, n_slots)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    print(f'K2 scatter_rows, one call under the profiler: device work {names}',
+          flush=True)
+    check(len(names) == 1 and 'scatter_rows_kernel' in names[0],
+          f'one K2 call is one kernel and no memset ({names})')
 
 
 def record_sparse_layers(model, run):
@@ -426,7 +470,8 @@ def sparse_kernel_phase(torch, det):
     k2 = time_scatter(torch, feats[:1], keys[:1], n_slots)
     print(f'scatter_rows B=1 at SECOND\'s shape ({k2["shape"]}): device '
           f'{k2["ms"]:.4f} ms, plain {k2["plain_ms"]:.4f} ms, library '
-          f'{k2["library_ms"]:.4f} ms, bound {k2["bound_ms"]:.4f} ms '
+          f'{k2["library_ms"]:.4f} ms, zero fill of the canvas '
+          f'{k2["fill_ms"]:.4f} ms, bound {k2["bound_ms"]:.4f} ms '
           f'({k2["bytes"]} bytes)', flush=True)
     return k3, k2
 
@@ -1025,6 +1070,7 @@ def select_work(torch, args):
     e = torch.minimum(end, start + max_run).long().reshape(b, -1)
     live = (e > s).long()
     pairs = int(((e - s) * live).sum())
+    most = int(((e - s) * live).reshape(b, m, n_row).sum(-1).max())
     # +1 where a run starts, -1 where it ends: a row is read where the
     # running sum is above 0
     edge = torch.zeros((b, n + 1), dtype=torch.long, device=orig.device)
@@ -1033,7 +1079,7 @@ def select_work(torch, args):
     rows_read = int((edge.cumsum(1)[:, :n] > 0).sum())
     n_bytes = rows_read * 16 + b * m * 12 + 2 * b * m * n_row * 4 \
         + b * m * sum(nsamples) * 4
-    return pairs, rows_read, n_bytes, 9 * pairs
+    return pairs, rows_read, n_bytes, 9 * pairs, most
 
 
 def select_kernel_phase(torch, det):
@@ -1044,7 +1090,7 @@ def select_kernel_phase(torch, det):
     then its time per source at one request's shape."""
     from lidardetection_tpu_torch.ops import pointnet2
     from lidardetection_tpu_torch.ops.select_cuda import (
-        ball_select, ball_select_plain,
+        ball_select, ball_select_plain, select_launch_plan,
     )
 
     clouds = make_clouds(det, 2, SEED + 500)
@@ -1092,29 +1138,59 @@ def select_kernel_phase(torch, det):
     errs.append(held((xyz, orig, start,
                       torch.where(every_third, start, end).contiguous(), centers,
                       *static), 'raw_points, a third of the centres invalid')[0])
-    # 6000 points in one 0.5 m cube: its cells hold far more than the cap
     lo = torch.tensor(det.info['point_cloud_range'][:3], device='cuda')
     hi = torch.tensor(det.info['point_cloud_range'][3:], device='cuda')
-    cloud = lo + (hi - lo) * torch.rand((1, 131072, 3), device='cuda',
-                                         generator=g)
-    cloud[0, :6000] = torch.tensor([20.0, 3.0, -1.0], device='cuda') \
-        + 0.5 * torch.rand((6000, 3), device='cuda', generator=g)
-    ctr = cloud[:, torch.randperm(131072, device='cuda', generator=g)[:2048]]
-    ctr[0, :256] = cloud[0, :256]
     knobs = det.model.pfe.knobs
-    dense, _ = record_ball_selects(lambda: pointnet2.grid_ball_query_multi(
-        (0.4, 0.8), (16, 16), cloud, torch.tensor([40000], device='cuda'), ctr,
-        bounds=knobs.bq_grid[0], cell_cap=knobs.bq_grid[1]))
-    err, cut = held(dense[0], 'a clump over the cell cap')
+
+    def clump(n_points, corner, size):
+        """K5's arguments for a cloud of 40000 valid points, n_points of
+        them in one cube, and 2048 centres, the first 256 in the cube."""
+        cloud = lo + (hi - lo) * torch.rand((1, 131072, 3), device='cuda',
+                                             generator=g)
+        cloud[0, :n_points] = torch.tensor(corner, device='cuda') \
+            + size * torch.rand((n_points, 3), device='cuda', generator=g)
+        ctr = cloud[:, torch.randperm(131072, device='cuda', generator=g)[:2048]]
+        ctr[0, :256] = cloud[0, :256]
+        calls, _ = record_ball_selects(lambda: pointnet2.grid_ball_query_multi(
+            (0.4, 0.8), (16, 16), cloud, torch.tensor([40000], device='cuda'),
+            ctr, bounds=knobs.bq_grid[0], cell_cap=knobs.bq_grid[1]))
+        return calls[0]
+
+    # 6000 points in one 0.5 m cube: its cells hold far more than the cap
+    err, cut = held(clump(6000, [20.0, 3.0, -1.0], 0.5),
+                    'a clump over the cell cap')
     errs.append(err)
     check(cut > 0, f'the clump reaches the run cut ({cut} runs at it)')
+    # every candidate of every run in radius, on a cloud whose 27 cells
+    # around its centres (0.8 m, grid-aligned) hold ~1500 points each: 9
+    # full runs, more hits than a warp's buffer, the kernel's second pass
+    xyz_c, orig_c, start_c, end_c, ctr_c, _, _, run_c = clump(
+        40000, [20.0, 3.2, -1.4], 2.4)
+    plan = select_launch_plan(start_c.shape[-1], run_c, (16, 32))
+    most = int((torch.minimum(end_c - start_c, torch.full_like(start_c, run_c))
+                .clamp(min=0).sum(-1)).max())
+    check(most > plan.cap, f'a centre with {most} hits overflows the '
+          f'{plan.cap}-hit buffer')
+    errs.append(held((xyz_c, orig_c, start_c, end_c, ctr_c, (1e3, 2e3),
+                      (16, 32), run_c),
+                     f'every candidate in radius, up to {most} hits a centre '
+                     f'(buffer {plan.cap})')[0])
+    for radius, ns in ((0.8, 1), (0.8, 64)):
+        errs.append(held((xyz, orig, start, end, centers, (radius,), (ns,),
+                          static[-1]), f'raw_points, nsample {ns}')[0])
+    n_src = orig.shape[1]
+    descending = (n_src - 1 - torch.arange(n_src, device='cuda', dtype=torch.int32)
+                  ).expand_as(orig).contiguous()
+    errs.append(held((xyz, descending, start, end, centers, *static),
+                     'raw_points, orig descending along each run')[0])
 
     rows, total = [], {'ms': 0.0, 'plain_ms': 0.0, 'bytes_ms': 0.0,
                        'ops_ms': 0.0}
     for src, args in zip(sources, ones):
-        pairs, rows_read, n_bytes, n_flop = select_work(torch, args)
+        pairs, rows_read, n_bytes, n_flop, most = select_work(torch, args)
         row = {'source': src, 'n_row': args[2].shape[-1],
                'rows': args[1].shape[1], 'rows_read': rows_read,
+               'most_rows_a_centre': most,
                'radii': list(args[5]),
                'nsamples': list(args[6]), 'live_pairs': pairs,
                'bytes': n_bytes, 'flop': n_flop,
@@ -1127,7 +1203,8 @@ def select_kernel_phase(torch, det):
         total['ops_ms'] += n_flop / F32_FLOP_PER_S * 1e3
         rows.append(row)
         print(f'ball_select {src} B=1: n_row {row["n_row"]}, {row["rows"]} rows '
-              f'({rows_read} read), {pairs} live pairs, device {row["ms"]:.4f} ms, plain '
+              f'({rows_read} read), {pairs} live pairs (at most {most} a '
+              f'centre), device {row["ms"]:.4f} ms, plain '
               f'{row["plain_ms"]:.4f} ms, bound {row["bound_ms"]:.5f} ms '
               f'({row["bound_by"]}; {n_bytes} bytes, {n_flop} FLOP)', flush=True)
     bound = sum(r['bound_ms'] for r in rows)
@@ -1146,9 +1223,10 @@ def select_kernel_phase(torch, det):
             'library_ms': None, 'per_request_ms': total['ms'], 'sources': rows}
 
 
-def pvrcnn_split(torch, det, points):
+def pvrcnn_split(torch, det, points, k5):
     """The PV-RCNN forward by module, with FPS, the five ball queries and
-    the proposal layer timed apart."""
+    the proposal layer timed apart; each ball query beside its K5 launch
+    (the rest of it is the prep: sort, cell boundaries, row runs)."""
     from lidardetection_tpu_torch.models.roi_heads import roi_head_utils
     from lidardetection_tpu_torch.ops import pointnet2
 
@@ -1158,6 +1236,13 @@ def pvrcnn_split(torch, det, points):
         (pointnet2, 'ball_query_multi', [f'ball query {s}' for s in sources]),
         (roi_head_utils, 'proposal_layer', ['proposal layer'])))
     queries = sum(med[f'ball query {s}'] for s in sources)
+    for row in k5['sources']:
+        q = med[f'ball query {row["source"]}']
+        print(f'ball query {row["source"]}: {q:.3f} ms (host clock, device '
+              f'drained), K5 {row["ms"]:.4f} ms (CUDA events), the prep the '
+              f'rest, {q - row["ms"]:.3f} ms', flush=True)
+    print(f'the five ball queries: {queries:.3f} ms, K5 {k5["per_request_ms"]:.4f} '
+          f'ms, the preps {queries - k5["per_request_ms"]:.3f} ms', flush=True)
     print(f'PV-RCNN forward: VSA {med["pfe"]:.2f} ms = FPS {med["fps"]:.2f} + '
           f'ball queries {queries:.2f} + the rest {med["pfe"] - med["fps"] - queries:.2f}; '
           f'RoI head {med["roi_head"]:.2f} ms = proposal layer '
@@ -1265,6 +1350,7 @@ def compare_train_phase(torch, trainer, cfg_file, batch, wrappers):
     0.05; a wrong kernel shows as an error of order 1 in both comparisons."""
     from lidardetection_tpu_torch.config import cfg_from_yaml_file
     from lidardetection_tpu_torch.train import Trainer
+    from lidardetection_tpu_torch.utils.precision import full_f32
 
     cfg = cfg_from_yaml_file(cfg_file)
     cfg.MODEL.COMPUTE_DTYPE = 'float32'
@@ -1278,8 +1364,8 @@ def compare_train_phase(torch, trainer, cfg_file, batch, wrappers):
         part = {k: v[:2].to(device) for k, v in batch.items()}
         for k in wrappers:
             k.launches = 0
-        if plain:
-            with plain_versions():
+        if plain:  # in f32 as Trainer.step holds it (utils/precision.py)
+            with plain_versions(), full_f32():
                 tb = twin.model.loss(twin.model(part))[1]
                 tb['loss'].backward()
         else:
@@ -1335,8 +1421,14 @@ def main():
             if 'registers' in line or 'spill' in line or (
                     name.startswith('sparse_conv') and 'Compiling entry' in line):
                 print(f'  {name}.cu: {line.strip()}', flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    # the TF32 flags stay as PyTorch sets them: the port holds its f32
+    # configs in f32 itself (utils/precision.py), as a user's run sees it
+
+    # what cuda_ms reads for a one-element kernel: the floor under every
+    # kernel time below (events, launch, a cold L2)
+    tiny = torch.zeros(1, device='cuda')
+    print(f'timing floor: a one-element add_ reads '
+          f'{cuda_ms(lambda: tiny.add_(1), torch):.4f} ms', flush=True)
 
     from lidardetection_tpu_torch.ops.scatter_cuda import scatter_rows
     from lidardetection_tpu_torch.ops.select_cuda import ball_select
@@ -1361,7 +1453,7 @@ def main():
     print('== PointPillar ==', flush=True)
     det, clouds, launches = served(CFG, N_REQUESTS,
                                    {pillar_vfe: 1, scatter_rows: 1})
-    k1, k2 = pillar_kernel_phase(torch, det)
+    (k1, k2), scatter_case = pillar_kernel_phase(torch, det)
     compare_phase(torch, det, CFG, clouds[:2])
     profiled = [(det, clouds[0])]  # traced last: see profile_run
 
@@ -1381,7 +1473,7 @@ def main():
     det, clouds, launches_pvrcnn = served(
         CFG_PVRCNN, N_REQUESTS_PVRCNN, dict(zip(wrappers, (0, 1, 12, 0, 5))))
     k5 = select_kernel_phase(torch, det)
-    pvrcnn_split(torch, det, clouds[0])
+    pvrcnn_split(torch, det, clouds[0], k5)
     compare_plain_phase(torch, det, CFG_PVRCNN, clouds[0], wrappers)
     profiled.append((det, clouds[0]))
     del det
@@ -1415,6 +1507,7 @@ def main():
     compare_train_phase(torch, trainer, CFG_SECOND, batches[-1], wrappers)
 
     print('== under the profiler ==', flush=True)
+    scatter_launch_count(torch, *scatter_case)
     for det, points in profiled:
         profile_request(torch, det, points)
     for each, batch in ((trainer_pillar, batch_pillar), (trainer, batches[-1])):

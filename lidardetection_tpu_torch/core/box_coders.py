@@ -76,6 +76,7 @@ def build_box_coder(name, **kwargs):
     if name != 'ResidualCoder':
         raise NotImplementedError(
             f'box coder {name} is not ported yet: see ROADMAP.md queue 1, '
-            '"PV-RCNN" (point coders) and "PointRCNN"')
+            '"PointRCNN" (PointResidualCoder, pointrcnn.yaml) and "Variants" '
+            '(pointrcnn_iou, PartA2_free)')
     fields = {f.name for f in dataclasses.fields(ResidualCoder)}
     return ResidualCoder(**{k: v for k, v in kwargs.items() if k in fields})

@@ -62,6 +62,7 @@ class Detector3D(nn.Module):
         dtype_name = model_cfg.get('COMPUTE_DTYPE', 'float32')
         dtype = None if dtype_name in (None, 'float32') \
             else getattr(torch, dtype_name)
+        self.compute_dtype = dtype or torch.float32
         grid_size = tuple(dataset_info['grid_size'])
         pc_range = tuple(dataset_info['point_cloud_range'])
         voxel_size = tuple(dataset_info['voxel_size'])

@@ -35,6 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.precision import full_f32
 from .select_cuda import ball_select
 
 _BIG = 1e10
@@ -91,10 +92,13 @@ def fps(xyz, num_valid, npoint, knobs=None):
 
 def _pairwise_d2(a, b):
     """Squared distances (..., M, N) of (..., M, 3) and (..., N, 3) points:
-    ``max((|a|^2 + |b|^2) - 2 a.b, 0)``, the cross term one float32 product."""
+    ``max((|a|^2 + |b|^2) - 2 a.b, 0)``, the cross term one float32 product
+    in full float32 whatever the process's matmul precision (the JAX
+    package pins ``Precision.HIGHEST`` there)."""
     a2 = _sum3(a * a)
     b2 = _sum3(b * b)
-    cross = a @ b.transpose(-1, -2)
+    with full_f32():
+        cross = a @ b.transpose(-1, -2)
     return ((a2[..., :, None] + b2[..., None, :]) - 2.0 * cross).clamp(min=0.0)
 
 

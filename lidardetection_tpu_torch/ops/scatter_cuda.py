@@ -1,20 +1,28 @@
-"""K2 ``scatter_rows``: rows into a zeroed BEV canvas by key (kernel in
+"""K2 ``scatter_rows``: key-sorted rows into a dense BEV canvas (kernel in
 csrc/scatter.cu).
 
 Replaces the forward of the TPU kernel ``lidardetection_tpu/ops/
 scatter_tpu.py::scatter_rows_sorted`` (Pallas ``_scatter_pallas`` /
 ``_tile_kernel``):
 
-    canvas[b, keys[b, v]] = feats[b, v]   for 0 <= keys[b, v] < n_slots
+    canvas[b, s] = feats[b, v] where keys[b, v] == s, else 0, for s < n_slots
 
-Rows keyed outside [0, n_slots) (padding rows carry n_slots) are dropped;
-kept keys are unique. The TPU kernel needs the keys sorted and a host tile
-histogram (``bev_tile_starts``) to turn the scatter into one-hot matmuls;
-Hopper stores rows natively, so neither is needed here.
+Contract, the TPU kernel's: in each sample the keys ascend, the kept keys
+(in [0, n_slots)) are unique, and the rows keyed outside [0, n_slots) are
+dropped; the padding rows, keyed n_slots, sit at the tail. Both callers
+hand such keys: the voxelizer sorts its table by linear key
+(``map_to_bev.PointPillarScatter``), and sparse tensors are sorted by
+``sparse.linear_key`` with the padding keyed D*H*W (``sparse_to_dense``).
+The kernel relies on the order (it finds each block's rows by a search);
+the plain version does not.
+
+The TPU kernel turns the sorted keys into one-hot matmuls over tile
+windows with a host tile histogram (``bev_tile_starts``); Hopper stores
+rows natively, and the kernel searches the keys on the device instead.
 
 Bound on the H100: memory bytes (the canvas written once, the kept rows
-and all keys read once). The wrapper zero-fills the canvas with
-``torch.zeros``; the kernel then copies each kept row in 16-byte words.
+and keys read once). One launch writes every canvas byte exactly once, the
+zeros included: the canvas comes from ``torch.empty``, with no zero fill.
 
 ``scatter_rows`` takes the plain PyTorch version for tensors on the CPU and
 launches the kernel for tensors on a CUDA device;
@@ -53,8 +61,8 @@ def scatter_rows_plain(feats, keys, n_slots):
 @functools.cache  # one ctypes binding per process
 def _launcher():
     fn = _build.load('scatter').scatter_rows_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + \
-        [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
+        [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -85,7 +93,8 @@ class _ScatterRows(torch.autograd.Function):
 
 
 def scatter_rows(feats, keys, n_slots):
-    """Scatter (B, V, C) rows to a zeroed (B, n_slots, C) canvas by keys.
+    """Scatter (B, V, C) rows to a (B, n_slots, C) canvas, zero where no
+    row lands, by keys sorted as the module docstring states.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     and anything the kernel does not take raises. Differentiable in feats.
@@ -107,15 +116,18 @@ def _scatter_forward(feats, keys, n_slots):
         raise ValueError('keys must be int32 on the device of feats')
     if not (feats.is_contiguous() and keys.is_contiguous()):
         raise ValueError('feats and keys must be contiguous')
-    if not 0 <= n_slots < 2 ** 31:
-        raise ValueError(f'n_slots {n_slots} out of int32 range')
     b, v, c = feats.shape
-    canvas = torch.zeros((b, n_slots, c), dtype=feats.dtype, device=feats.device)
-    if b * v * c == 0:
+    if not (0 <= n_slots < 2 ** 31 and v < 2 ** 31 and b < 2 ** 16
+            and c * feats.element_size() <= 2 ** 26):
+        raise ValueError(f'sizes out of range: B {b}, V {v}, C {c}, n_slots '
+                         f'{n_slots}')
+    # every byte is written by the kernel: no zero fill
+    canvas = torch.empty((b, n_slots, c), dtype=feats.dtype, device=feats.device)
+    if b * n_slots * c == 0:
         return canvas
     with torch.cuda.device(feats.device):
         rc = _launcher()(
-            feats.data_ptr(), keys.data_ptr(), canvas.data_ptr(), b * v, v,
+            feats.data_ptr(), keys.data_ptr(), canvas.data_ptr(), b, v,
             c * feats.element_size(), n_slots,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:

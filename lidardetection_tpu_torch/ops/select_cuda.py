@@ -21,7 +21,10 @@ table (xyz and original row index); runs are at most ``max_run`` rows long
 The TPU kernel reads packed field-major candidate windows, a workaround for
 XLA:TPU's per-index gather billing; the Hopper kernel reads the sorted
 table directly. Bound on the H100: see the csrc note (latency of dependent
-loads at one request's shapes; bytes and FLOP are both small).
+steps at one request's shapes; bytes and FLOP are both small). The kernel
+packs a hit into 4 bytes (orig << 4 and one bit a radius), so the table
+holds fewer than 2^28 rows; ``select_launch_plan`` sizes a block's
+shared memory from the shape.
 
 ``ball_select`` takes the plain PyTorch version for tensors on the CPU and
 launches the kernel for tensors on a CUDA device; ``ball_select.launches``
@@ -30,6 +33,7 @@ counts the launches.
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -37,6 +41,33 @@ import torch
 from . import _build
 
 MAX_RADII = 4  # csrc/ball_select.cu
+MAX_ROWS = 1 << 28  # orig << 4 fits 32 bits
+HIT_CAP = 1024  # hits a center keeps in shared memory; a center with more
+                # reads its runs again for each pass (exact, slower)
+HIST_BINS = 256  # the radix select's histogram
+SMEM_LIMIT = 227 * 1024 - 256  # a block's shared memory on the H100, less
+                               # the kernel's static block-wide values
+
+
+class SelectPlan(NamedTuple):
+    cap: int  # hits a center (a block) keeps in shared memory
+    list_cap: int  # taken hits of a radius: the largest nsample
+    smem_bytes: int  # dynamic shared memory a block
+
+
+def select_launch_plan(n_row, max_run, nsamples):
+    """K5's launch plan from the shape alone: one block of two warps a
+    center, holding in shared memory up to ``min(n_row * max_run,
+    HIT_CAP)`` 4-byte hits, a ``HIST_BINS`` histogram, a taken list of
+    ``max(nsamples)`` entries, and its runs' starts and offsets. Raises
+    ValueError for a shape no block can hold."""
+    cap = min(n_row * max_run, HIT_CAP)
+    list_cap = max(nsamples)
+    smem = 4 * (cap + HIST_BINS + list_cap + 2 * n_row + 1)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f'ball_select cannot hold n_row {n_row} and nsample '
+                         f'{list_cap} in one block\'s shared memory')
+    return SelectPlan(cap, list_cap, smem)
 
 
 def squared_radii(radii):
@@ -84,7 +115,7 @@ def ball_select_plain(xyz, orig, start, end, centers, radii, nsamples,
 def _launcher():
     fn = _build.load('ball_select').ball_select_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
-        [ctypes.c_void_p] * 4
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -112,8 +143,11 @@ def _check(xyz, orig, start, end, centers, radii, nsamples, max_run):
         raise ValueError(f'want 1 to {MAX_RADII} radii, one nsample each')
     if min(nsamples) < 1 or max_run < 1 or n < 1:
         raise ValueError('nsamples, max_run and the table must be positive')
-    if b * max(m, n) >= 2 ** 31:
+    if b * max(m, n) >= 2 ** 31 or b * m * n_row >= 2 ** 31:
         raise ValueError('sizes out of int32 range')
+    if n >= MAX_ROWS:
+        raise ValueError(f'a table of {n} rows: the kernel takes fewer than '
+                         f'{MAX_ROWS}')
 
 
 def ball_select(xyz, orig, start, end, centers, radii, nsamples, max_run):
@@ -134,13 +168,15 @@ def ball_select(xyz, orig, start, end, centers, radii, nsamples, max_run):
     r2 = (ctypes.c_float * k)(*squared_radii(radii))
     ns = (ctypes.c_int * k)(*(int(s) for s in nsamples))
     ptrs = (ctypes.c_void_p * k)(*(o.data_ptr() for o in outs))
+    plan = select_launch_plan(n_row, int(max_run), nsamples)
     if b * m == 0:
         return outs
     with torch.cuda.device(xyz.device):
         rc = _launcher()(
             xyz.data_ptr(), orig.data_ptr(), start.data_ptr(), end.data_ptr(),
             centers.data_ptr(), b * m, m, n, n_row, int(max_run), k, r2, ns,
-            ptrs, torch.cuda.current_stream().cuda_stream)
+            ptrs, plan.cap, plan.list_cap,
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f'ball_select kernel launch failed: CUDA error {rc}')
     ball_select.launches += 1

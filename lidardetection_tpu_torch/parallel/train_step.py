@@ -5,10 +5,13 @@ statistics) and the optimizer (moments and the step count).
 ``make_train_step(state)`` returns ``step(batch) -> tb``: train-mode
 forward, loss, backward, then one optimizer step (clip, Adam, weight decay).
 The forward runs once, so the BatchNorm statistics move once a step.
-Parameters are updated in place.
+Parameters are updated in place. A float32 model steps in float32 whatever
+the process's TF32 and matmul-precision flags are (``utils/precision.py``).
 """
 
 import torch
+
+from ..utils.precision import full_f32
 
 # batch keys the step reads; ``rb_*`` (host-built rulebooks) ride along
 DEVICE_KEYS = ('voxels', 'voxel_coords', 'voxel_num_points', 'num_voxels',
@@ -49,9 +52,10 @@ def make_train_step(state):
         model.train()
         for p in optimizer.params:
             p.grad = None
-        loss, tb = model.loss(model(batch))
-        loss.backward()
-        optimizer.step()
+        with full_f32(model.compute_dtype == torch.float32):
+            loss, tb = model.loss(model(batch))
+            loss.backward()
+            optimizer.step()
         return {k: v.detach() for k, v in tb.items()}
 
     return step

@@ -9,6 +9,10 @@ returns a list of ``{boxes (n, 7), scores (n,), labels (n,)}`` numpy dicts.
 A detector whose slots read raw points (PV-RCNN) gets them in its batch,
 padded to DATA_CONFIG.MAX_POINTS; the others copy only the voxels.
 
+A float32 config computes in float32 whatever the process's TF32 and
+matmul-precision flags are (``utils/precision.py``); a bf16 one leaves
+them alone.
+
 The CPU is used only when asked (``device="cpu"``); the default device
 raises when CUDA is absent.
 
@@ -29,6 +33,7 @@ from .datasets.synthetic import make_scene
 from .models import build_network
 from .models.detectors.post_processing import post_processing
 from .ops.voxelize import build_batch
+from .utils.precision import full_f32
 
 
 class Detector:
@@ -66,7 +71,8 @@ class Detector:
     @torch.inference_mode()
     def forward(self, batch):
         """Model forward: the last head's output for `postprocess`."""
-        return self.model(batch)
+        with full_f32(self.model.compute_dtype == torch.float32):
+            return self.model(batch)
 
     @torch.inference_mode()
     def postprocess(self, out):

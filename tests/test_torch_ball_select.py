@@ -12,7 +12,7 @@ import torch
 from lidardetection_tpu.ops import pointnet2 as jp2
 from lidardetection_tpu.ops.select_tpu import ball_select as pallas_select
 from lidardetection_tpu_torch.ops.select_cuda import (
-    ball_select, ball_select_plain, squared_radii,
+    ball_select, ball_select_plain, select_launch_plan, squared_radii,
 )
 
 NW = 4
@@ -95,3 +95,24 @@ def test_squared_radii_are_squared_in_float32():
     r2 = squared_radii((0.4, 0.8))
     assert r2[0] == float(np.float32(0.4) * np.float32(0.4))
     assert r2[0] != float(np.float32(0.4 * 0.4))
+
+
+@pytest.mark.parametrize('n_row,nsamples', [(9, (16, 16)), (9, (16, 32)),
+                                            (6, (16, 32)), (3, (16, 32))])
+def test_launch_plan_at_the_pvrcnn_shapes(n_row, nsamples):
+    """A request's five sources: up to 1024 hits a center (576 where three
+    runs of 192 rows hold fewer), inside the 48 KB a block gets without
+    opting in."""
+    plan = select_launch_plan(n_row, 192, nsamples)
+    cap = min(n_row * 192, 1024)
+    assert (plan.cap, plan.list_cap) == (cap, max(nsamples))
+    assert plan.smem_bytes == 4 * (cap + 256 + max(nsamples)
+                                   + 2 * n_row + 1) < 48 * 1024
+
+
+def test_launch_plan_sizes_from_the_shape():
+    assert select_launch_plan(1, 10, (4,)).cap == 10  # runs hold fewer
+    big = select_launch_plan(9, 192, (40000,))  # the taken list sets it
+    assert big.list_cap == 40000 and big.smem_bytes <= 227 * 1024
+    with pytest.raises(ValueError):
+        select_launch_plan(9, 192, (60000,))

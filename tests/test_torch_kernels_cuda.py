@@ -15,7 +15,9 @@ from lidardetection_tpu_torch.ops import pointnet2
 from lidardetection_tpu_torch.ops.scatter_cuda import (
     scatter_rows, scatter_rows_grad_plain, scatter_rows_plain,
 )
-from lidardetection_tpu_torch.ops.select_cuda import ball_select, ball_select_plain
+from lidardetection_tpu_torch.ops.select_cuda import (
+    ball_select, ball_select_plain, select_launch_plan,
+)
 from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
     DW_WORKSPACE_BYTES, dw_split_plan, rulebook_conv, rulebook_conv_dw,
     rulebook_conv_dw_plain, rulebook_conv_plain,
@@ -66,6 +68,29 @@ def test_scatter_rows_kernel_matches_plain(device, dtype, c):
     for b, n in enumerate((1100, 0, 7)):
         keys[b, :n] = np.sort(rng.choice(n_slots, n, replace=False))
     feats = torch.from_numpy(rng.randn(3, v, c)).to(device, dtype)
+    keys_t = torch.from_numpy(keys).to(device)
+    before = scatter_rows.launches
+    got = scatter_rows(feats, keys_t, n_slots)
+    torch.cuda.synchronize()
+    assert scatter_rows.launches == before + 1
+    torch.testing.assert_close(got, scatter_rows_plain(feats, keys_t, n_slots),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('c', [4, 16, 64, 128, 256, 7])
+def test_scatter_rows_kernel_over_widths(device, dtype, c):
+    """B = 4 into 5003 slots (no block's slot count divides it): a full
+    sample, an empty one, one of padding alone and one where every slot is
+    hit; C = 7 gives rows of 14 or 28 bytes, not a multiple of 16."""
+    rng = np.random.RandomState(c)
+    n_slots = 5003
+    v = n_slots
+    keys = np.full((4, v), n_slots, np.int32)
+    keys[0, :4000] = np.sort(rng.choice(n_slots, 4000, replace=False))
+    keys[1, :3] = [0, 2500, n_slots - 1]
+    keys[3] = np.arange(n_slots)
+    feats = torch.from_numpy(rng.randn(4, v, c)).to(device, dtype)
     keys_t = torch.from_numpy(keys).to(device)
     before = scatter_rows.launches
     got = scatter_rows(feats, keys_t, n_slots)
@@ -206,6 +231,29 @@ def _dw_case(device, dtype, k, c_in, c_out, b=3, v_in=700, v_out=1000, seed=0):
     g = torch.from_numpy(rng.randn(b, v_out, c_out)).to(device, dtype)
     return (f, torch.from_numpy(rule).to(device), g,
             torch.from_numpy(valid).to(device))
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('c', [4, 16, 64, 128, 256, 7])
+def test_scatter_rows_kernel_over_widths(device, dtype, c):
+    """B = 4 into 5003 slots (no block's slot count divides it): a full
+    sample, an empty one, one of padding alone and one where every slot is
+    hit; C = 7 gives rows of 14 or 28 bytes, not a multiple of 16."""
+    rng = np.random.RandomState(c)
+    n_slots = 5003
+    v = n_slots
+    keys = np.full((4, v), n_slots, np.int32)
+    keys[0, :4000] = np.sort(rng.choice(n_slots, 4000, replace=False))
+    keys[1, :3] = [0, 2500, n_slots - 1]
+    keys[3] = np.arange(n_slots)
+    feats = torch.from_numpy(rng.randn(4, v, c)).to(device, dtype)
+    keys_t = torch.from_numpy(keys).to(device)
+    before = scatter_rows.launches
+    got = scatter_rows(feats, keys_t, n_slots)
+    torch.cuda.synchronize()
+    assert scatter_rows.launches == before + 1
+    torch.testing.assert_close(got, scatter_rows_plain(feats, keys_t, n_slots),
+                               rtol=0, atol=0)
 
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
@@ -358,11 +406,11 @@ def test_scatter_rows_backward_is_the_gather(device):
         feats.grad, scatter_rows_grad_plain(g, keys_t, n_slots), rtol=0, atol=0)
 
 
-def _select_case(device, b, n_row, empty_share, seed):
+def _select_case(device, b, n_row, empty_share, seed, n=5000):
     """A cell-sorted table of a clumped cloud and its row runs, as
     ops/pointnet2.py::grid_ball_query_multi prepares them for K5."""
     rng = np.random.RandomState(seed)
-    n, m, cap = 5000, 700, 64
+    m, cap = 700, 64
     xyz = rng.uniform(0, 8, (b, n, 3)).astype(np.float32)
     xyz[:, :2000] = rng.uniform(0, 1, (b, 2000, 3)) + np.float32([3, 3, 1])
     orig = np.stack([rng.permutation(n) for _ in range(b)]).astype(np.int32)
@@ -411,6 +459,78 @@ def test_ball_select_rejects_what_the_kernel_does_not_take(device):
     assert ball_select.launches == before
 
 
+def _held_bit_for_bit(args, radii, nsamples, max_run):
+    before = ball_select.launches
+    got = ball_select(*args, radii, nsamples, max_run)
+    torch.cuda.synchronize()
+    assert ball_select.launches == before + 1
+    want = ball_select_plain(*args, radii, nsamples, max_run)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return got
+
+
+def _blocks_case(device, m, n_row, run, hits, orig, seed=0):
+    """Center r reads its own block of n_row * run table rows, in n_row
+    runs of `run` rows; the first hits[r] rows of its block lie within 0.3
+    of it, the others 50 away. orig: (m * n_row * run,) int32."""
+    rng = np.random.RandomState(seed)
+    k = n_row * run
+    centers = rng.uniform(-20, 20, (1, m, 3)).astype(np.float32)
+    xyz = np.repeat(centers[0], k, 0) + rng.uniform(-0.17, 0.17, (m * k, 3))
+    far = np.arange(k)[None, :] >= np.asarray(hits)[:, None]
+    xyz[far.reshape(-1)] += 50.0
+    start = (np.arange(m)[:, None] * k + np.arange(n_row) * run)[None]
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (
+        xyz[None].astype(np.float32), orig[None].astype(np.int32),
+        start.astype(np.int32), (start + run).astype(np.int32), centers)]
+
+
+@pytest.mark.parametrize('ns', [16, 32])
+@pytest.mark.parametrize('delta', [-1, 0, 1])
+def test_ball_select_hit_counts_around_nsample(device, ns, delta):
+    m, n_row, run = 64, 3, 40
+    orig = np.random.RandomState(ns).permutation(m * n_row * run)
+    args = _blocks_case(device, m, n_row, run, [ns + delta] * m, orig)
+    got = _held_bit_for_bit(args, (0.5, 60.0), (ns, ns), run)
+    assert int(torch.isfinite(got[0]).sum(-1).max()) == min(ns + delta, ns)
+
+
+def test_ball_select_overflows_the_hit_buffer(device):
+    """Every candidate in radius at n_row 9 and max_run 192: 1728 hits a
+    center, more than a warp's buffer holds, so the kernel reads its runs
+    again for each pass."""
+    m, n_row, run = 48, 9, 192
+    assert n_row * run > select_launch_plan(n_row, run, (16, 32)).cap
+    orig = np.random.RandomState(5).permutation(m * n_row * run)
+    args = _blocks_case(device, m, n_row, run, [n_row * run] * m, orig)
+    _held_bit_for_bit(args, (1e3, 2e3), (16, 32), run)
+
+
+@pytest.mark.parametrize('ns', [1, 64])
+def test_ball_select_nsample_1_and_64(device, ns):
+    args = _select_case(device, 2, 9, 0.0, seed=ns)
+    _held_bit_for_bit(args, (0.8, 1.6), (ns, ns), 192)
+
+
+def test_ball_select_hits_in_one_histogram_bin(device):
+    """Each center's hits hold consecutive orig but one far above them
+    (near 2^27): every histogram level but the last puts all the others in
+    one bin, and the selection descends through all four."""
+    m, n_row, run = 32, 3, 64
+    k = n_row * run
+    orig = np.empty((m, k), np.int64)
+    orig[:, :-1] = np.arange(m)[:, None] * (k - 1) + np.arange(k - 1)
+    orig[:, -1] = 2 ** 27 - 1 - np.arange(m)
+    args = _blocks_case(device, m, n_row, run, [k] * m, orig.reshape(-1))
+    _held_bit_for_bit(args, (1e3,), (16,), run)
+
+
+def test_ball_select_on_a_table_of_131072_rows(device):
+    args = _select_case(device, 1, 9, 0.0, seed=7, n=131072)
+    _held_bit_for_bit(args, (0.4, 0.8), (16, 32), 192)
+
+
 def test_grid_ball_query_on_the_card_launches_k5(device, monkeypatch):
     """The row-run grid path on the card goes through K5 once for all radii
     and gives what it gives with the plain selection."""
@@ -431,3 +551,48 @@ def test_grid_ball_query_on_the_card_launches_k5(device, monkeypatch):
     for (gi, ge), (wi, we) in zip(got, want):
         assert torch.equal(gi, wi) and torch.equal(ge, we)
     assert bool(got[0][1][~valid].all()) and not bool(got[1][1][valid].all())
+
+
+def _tf32_flags():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.get_float32_matmul_precision())
+
+
+def _set_tf32_flags(cudnn, matmul, precision):
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    torch.set_float32_matmul_precision(precision)
+
+
+@pytest.mark.parametrize('cfg_file', ['tools/cfgs/kitti_models/pointpillar.yaml',
+                                      'tools/cfgs/kitti_models/pv_rcnn.yaml'])
+def test_f32_forward_ignores_the_tf32_flags(device, cfg_file):
+    """An f32 forward with TF32 allowed for cuDNN and matmul, and the matmul
+    precision 'high', gives the bits of the same forward with them off
+    (every tensor of the output), and leaves the flags as they were set."""
+    from lidardetection_tpu_torch.config import cfg_from_yaml_file
+    from lidardetection_tpu_torch.datasets.synthetic import make_scene
+    from lidardetection_tpu_torch.serve import Detector
+
+    cfg = cfg_from_yaml_file(cfg_file)
+    cfg.MODEL.COMPUTE_DTYPE = 'float32'
+    det = Detector(cfg, device='cuda', seed=0)
+    points = make_scene(np.random.RandomState(0),
+                        np.asarray(det.info['point_cloud_range'], np.float32))[0]
+    batch = det.make_batch([points])
+    found = _tf32_flags()
+    outs = {}
+    try:
+        for flags in ((True, True, 'high'), (False, False, 'highest')):
+            _set_tf32_flags(*flags)
+            outs[flags] = det.forward(batch)
+            torch.cuda.synchronize()
+            assert _tf32_flags() == flags
+    finally:
+        _set_tf32_flags(*found)
+    on, off = outs.values()
+    tensors = [k for k, v in off.items() if torch.is_tensor(v)]
+    assert [k for k in tensors if k.startswith('batch_')]
+    for key in tensors:
+        assert torch.equal(on[key], off[key]), key
