@@ -8,13 +8,17 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      and read the timing floor (a one-element kernel under ``cuda_ms``);
   2. K1 and K2 against their plain PyTorch versions on the card, at the
      PointPillar path's shapes (40000-pillar table of voxelized synthetic
-     scenes, P = 32, C = 64, 496 x 432 canvas, B = 1 and B = 4; K2 also on
-     a sample of padding alone and one that hits every slot), and their
-     times beside the bound, the plain version's time and a library call's;
+     scenes, P = 32, C = 64, 496 x 432 canvas, B = 1 and B = 4), bit-equal;
+     K1 in bf16 and f32, also with no live pillar, every pillar full,
+     counts out of [0, P], V a multiple of no block's pillars, P = 20 at
+     C = 100 and its scalar path (C = 99); K2 also on a sample of padding
+     alone and one that hits every slot; their times beside the bound, the
+     plain version's time and a library call's (K1 at B = 1 and B = 4);
   3. serve requests through ``serve.Detector`` on the full
      tools/cfgs/kitti_models/pointpillar.yaml (bf16 compute, random
      weights from a seed, class-logit bias 0 so NMS sees live candidates),
      with every kernel's launch count set to 0 just before and read after;
+     the forward split by module;
   4. the same weights and clouds in f32 on the card (kernels) and on the
      CPU (plain versions): head outputs and kept detections must agree
      (the TF32 flags are left as PyTorch sets them: the port holds f32
@@ -175,12 +179,45 @@ def time_scatter(torch, feats, keys, n_slots):
     return row
 
 
+def vfe_held(torch, what, vox, centers, pb, counts, w4, shift):
+    """K1 against its plain version on the card in bf16 and in f32 (weights
+    and output): the same bits required. Returns max|kernel - plain|."""
+    from lidardetection_tpu_torch.ops.vfe_cuda import pillar_vfe, pillar_vfe_plain
+
+    worst = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        args = (vox, centers, pb, counts, w4.to(dt), shift)
+        got = pillar_vfe(*args, out_dtype=dt)
+        want = pillar_vfe_plain(*args, out_dtype=dt)
+        torch.cuda.synchronize()
+        e = float((got.float() - want.float()).abs().max())
+        print(f'K1 pillar_vfe, {what}, {str(dt)[6:]}: max|kernel-plain| = {e} '
+              f'(bit-exact required: {torch.equal(got, want)})', flush=True)
+        check(torch.equal(got, want), f'pillar_vfe {what} {dt} bit-exact')
+        worst = max(worst, e)
+    return worst
+
+
+def vfe_work(counts, p, c):
+    """K1's bytes (the counts, each live pillar's center and bias row and
+    its points below the count read once, the output written once in
+    bf16, the weights) and FLOP, for these counts."""
+    n = counts.numel()
+    n_pts = int(counts.clamp(0, p).sum())
+    n_live = int((counts > 0).sum())
+    n_bytes = (n * 4 + n_live * (16 + c * 4) + n_pts * 16 + n * c * 2
+               + 4 * c * 2 + c * 4)
+    return n_bytes, n_pts * c * 8 + n * c * 3
+
+
 def pillar_kernel_phase(torch, det):
     """K1 and K2 against their plain versions at PointPillar's shapes."""
     from lidardetection_tpu_torch.ops.scatter_cuda import (
         scatter_rows, scatter_rows_plain,
     )
-    from lidardetection_tpu_torch.ops.vfe_cuda import pillar_vfe, pillar_vfe_plain
+    from lidardetection_tpu_torch.ops.vfe_cuda import (
+        channels_per_thread, pillar_vfe, pillar_vfe_plain,
+    )
 
     batch = det.make_batch(make_clouds(det, 4, SEED + 100))
     vox, counts, coords = (batch['voxels'], batch['voxel_num_points'],
@@ -206,21 +243,15 @@ def pillar_kernel_phase(torch, det):
           f'{batch["num_voxels"].tolist()}, points kept per scene '
           f'{counts.sum(1).tolist()}', flush=True)
 
+    for width in (c, 100, 99):
+        vec = channels_per_thread(width)
+        print(f'K1 path at C={width}: {vec} channel(s) a thread, {width // vec} '
+              f'threads a pillar ({"vector" if vec == 4 else "scalar"} path)',
+              flush=True)
     err = {'pillar_vfe': 0.0, 'scatter_rows': 0.0}
     for b in (1, b4):
-        args = (vox[:b], centers[:b], pb[:b], counts[:b])
-        for wdt, odt, atol, rtol in ((torch.bfloat16, torch.bfloat16, 1e-2, 1e-2),
-                                     (torch.float32, torch.float32, 1e-5, 0.0)):
-            got = pillar_vfe(*args, w4.to(wdt), shift, out_dtype=odt)
-            want = pillar_vfe_plain(*args, w4.to(wdt), shift, out_dtype=odt)
-            torch.cuda.synchronize()
-            d = (got.float() - want.float()).abs()
-            e = float(d.max())
-            print(f'K1 pillar_vfe B={b} {str(odt)[6:]}: max|kernel-plain| = {e:.3g} '
-                  f'(tolerance atol {atol} rtol {rtol})', flush=True)
-            check(bool((d <= atol + rtol * want.float().abs()).all()),
-                  f'pillar_vfe B={b} {odt} within tolerance')
-            err['pillar_vfe'] = max(err['pillar_vfe'], e)
+        err['pillar_vfe'] = max(err['pillar_vfe'], vfe_held(
+            torch, f'B={b}', vox[:b], centers[:b], pb[:b], counts[:b], w4, shift))
         got = scatter_rows(feats[:b], keys[:b], n_slots)
         want = scatter_rows_plain(feats[:b], keys[:b], n_slots)
         torch.cuda.synchronize()
@@ -243,16 +274,36 @@ def pillar_kernel_phase(torch, det):
               f'{torch.equal(got, want)}', flush=True)
         check(torch.equal(got, want), f'scatter_rows {what} bit-exact')
 
+    # K1's edges, each on the first scene's table: no live pillar, every
+    # pillar full, counts out of [0, P], V a multiple of no block's pillars,
+    # P = 20 (which clamps the counts above it) at C = 100, and the scalar
+    # path (C = 99)
+    one = (vox[:1], centers[:1], pb[:1])
+    g32 = torch.Generator(device='cuda').manual_seed(SEED + 1)
+    wild = torch.randint(-3, p + 6, (1, v), generator=g32, device='cuda',
+                         dtype=torch.int32)
+    cut = v - 13
+    for what, args in (
+            ('empty pillars only', (*one, torch.zeros_like(counts[:1]))),
+            (f'every pillar full (count {p})', (*one, torch.full_like(counts[:1], p))),
+            (f'counts from -3 to {p + 5}', (*one, wild)),
+            (f'V={cut}', (vox[:1, :cut].contiguous(), centers[:1, :cut].contiguous(),
+                          pb[:1, :cut].contiguous(), counts[:1, :cut].contiguous()))):
+        err['pillar_vfe'] = max(err['pillar_vfe'],
+                                vfe_held(torch, what, *args, w4, shift))
+    for pts, width in ((20, 100), (p, 99)):
+        err['pillar_vfe'] = max(err['pillar_vfe'], vfe_held(
+            torch, f'P={pts} C={width}', vox[:1, :, :pts].contiguous(),
+            centers[:1], torch.randn((1, v, width), generator=g32, device='cuda'),
+            counts[:1], torch.randn((4, width), generator=g32, device='cuda') * 0.3,
+            torch.randn((width,), generator=g32, device='cuda') * 0.1))
+
     # timings at the main path's shape: one request, B = 1
     a1 = (vox[:1], centers[:1], pb[:1], counts[:1], w4.bfloat16(), shift)
     f1, k1keys = feats[:1], keys[:1]
     calls = {'pillar_vfe': lambda: pillar_vfe(*a1),
              'scatter_rows': lambda: scatter_rows(f1, k1keys, n_slots)}
-    n_pts = int(counts[:1].sum())
-    n_live = int((counts[:1] > 0).sum())
-    k1_bytes = (v * 4 + n_live * (16 + c * 4) + n_pts * 16 + v * c * 2
-                + 4 * c * 2 + c * 4)
-    k1_flop = n_pts * c * 8 + v * c * 3
+    k1_bytes, k1_flop = vfe_work(counts[:1], p, c)
     k1 = {'name': 'pillar_vfe', 'route': 'cuda',
           'source': 'lidardetection_tpu_torch/csrc/vfe.cu',
           'replaces': 'lidardetection_tpu/ops/vfe_tpu.py:78',
@@ -261,6 +312,28 @@ def pillar_kernel_phase(torch, det):
           'plain_ms': cuda_ms(lambda: pillar_vfe_plain(*a1), torch),
           'library_ms': None}
     k1['bound_ms'], k1['bound_by'] = bound_ms(k1_bytes, k1_flop)
+    # and at B = 4, where the bound stands above the timing floor
+    a4 = (vox, centers, pb, counts, w4.bfloat16(), shift)
+    n_bytes, n_flop = vfe_work(counts, p, c)
+    k1['batch4'] = {'ms': cuda_ms(lambda: pillar_vfe(*a4), torch),
+                    'plain_ms': cuda_ms(lambda: pillar_vfe_plain(*a4), torch),
+                    'bytes': n_bytes}
+    k1['batch4']['bound_ms'], k1['batch4']['bound_by'] = bound_ms(n_bytes, n_flop)
+    # what the rows alone cost under the same timing: K1 with no live
+    # pillar (its counts and every row written), and a bare fill of its
+    # output
+    for row, args in ((k1, a1), (k1['batch4'], a4)):
+        none = torch.zeros_like(args[3])
+        row['no_live_ms'] = cuda_ms(
+            lambda: pillar_vfe(*args[:3], none, *args[4:]), torch)
+        filled = torch.empty((args[0].shape[0], v, c), dtype=torch.bfloat16,
+                             device='cuda')
+        row['fill_ms'] = cuda_ms(filled.zero_, torch)
+    print(f'pillar_vfe B={b4}: device {k1["batch4"]["ms"]:.4f} ms, plain '
+          f'{k1["batch4"]["plain_ms"]:.4f} ms, bound '
+          f'{k1["batch4"]["bound_ms"]:.4f} ms ({n_bytes} bytes); no live '
+          f'pillar {k1["batch4"]["no_live_ms"]:.4f} ms, a fill of its output '
+          f'{k1["batch4"]["fill_ms"]:.4f} ms', flush=True)
 
     k2 = {'name': 'scatter_rows', 'route': 'cuda',
           'source': 'lidardetection_tpu_torch/csrc/scatter.cu',
@@ -271,9 +344,10 @@ def pillar_kernel_phase(torch, det):
         call = cuda_ms(calls[k['name']], torch, queued=False)
         print(f'{k["name"]} B=1: device {k["ms"]:.4f} ms (call with host '
               f'overhead {call:.4f} ms), plain {k["plain_ms"]:.4f} ms, '
-              f'library {k["library_ms"]}, zero fill of the canvas '
+              f'library {k["library_ms"]}, zero fill of the output '
               f'{k.get("fill_ms")}, bound {k["bound_ms"]:.4f} ms '
-              f'({nbytes} bytes)', flush=True)
+              f'({nbytes} bytes)' + (f', no live pillar {k["no_live_ms"]:.4f} ms'
+                                     if 'no_live_ms' in k else ''), flush=True)
     return [k1, k2], (f1, k1keys, n_slots)
 
 
@@ -1454,6 +1528,7 @@ def main():
     det, clouds, launches = served(CFG, N_REQUESTS,
                                    {pillar_vfe: 1, scatter_rows: 1})
     (k1, k2), scatter_case = pillar_kernel_phase(torch, det)
+    forward_split(torch, det, clouds[0])
     compare_phase(torch, det, CFG, clouds[:2])
     profiled = [(det, clouds[0])]  # traced last: see profile_run
 

@@ -13,9 +13,15 @@ the (B, V, P, C) point activations (module docstring of vfe_tpu.py for the
 algebra that turns PillarVFE's Linear+BN into this form).
 
 Bound on the H100: memory bytes (the valid points, centers, bias rows and
-counts read once, the output written once); the csrc note says how the
-kernel keeps to them. The block-diagonal ``kron`` weight of the TPU kernel
-fills the MXU's lanes and has no counterpart here.
+counts read once, the output written once) and the latency of those
+loads. A thread owns one pillar's 4 consecutive channels (1 where C is not
+a multiple of 4 or the bias rows are not 16-byte aligned:
+``channels_per_thread``) and strides over the pillars: an empty pillar's
+row (``relu(shift)``) is stored from registers, a live pillar's loads
+depend only on its count, which each thread loads four pillars ahead. No
+shared memory and no barrier; the csrc note says what else was tried. The
+block-diagonal ``kron`` weight of the TPU kernel fills the MXU's lanes and
+has no counterpart here.
 
 ``pillar_vfe`` takes the plain PyTorch version for tensors on the CPU and
 launches the kernel for tensors on a CUDA device; ``pillar_vfe.launches``
@@ -87,12 +93,20 @@ def _check(vox4, centers, pillar_bias, counts, w4, shift, out_dtype):
 
 
 @functools.cache  # one ctypes binding per process
-def _launcher():
-    fn = _build.load('vfe').pillar_vfe_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + \
-        [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _library():
+    lib = _build.load('vfe')
+    lib.pillar_vfe_launch.argtypes = [ctypes.c_void_p] * 7 + \
+        [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.pillar_vfe_launch.restype = ctypes.c_int
+    lib.pillar_vfe_channels_per_thread.argtypes = [ctypes.c_int]
+    lib.pillar_vfe_channels_per_thread.restype = ctypes.c_int
+    return lib
+
+
+def channels_per_thread(c):
+    """Channels a kernel thread takes at width C with 16-byte aligned bias
+    rows: 4, or 1 on the scalar path (builds the kernel)."""
+    return _library().pillar_vfe_channels_per_thread(c)
 
 
 def pillar_vfe(vox4, centers, pillar_bias, counts, w4, shift,
@@ -114,7 +128,7 @@ def pillar_vfe(vox4, centers, pillar_bias, counts, w4, shift,
     if b * v == 0:
         return out
     with torch.cuda.device(vox4.device):
-        rc = _launcher()(
+        rc = _library().pillar_vfe_launch(
             vox4.data_ptr(), centers.data_ptr(), pillar_bias.data_ptr(),
             counts.data_ptr(), w4.data_ptr(), shift.data_ptr(),
             out.data_ptr(), b * v, p, c, int(w4.dtype == torch.bfloat16),

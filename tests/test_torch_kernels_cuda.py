@@ -22,7 +22,9 @@ from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
     DW_WORKSPACE_BYTES, dw_split_plan, rulebook_conv, rulebook_conv_dw,
     rulebook_conv_dw_plain, rulebook_conv_plain,
 )
-from lidardetection_tpu_torch.ops.vfe_cuda import pillar_vfe, pillar_vfe_plain
+from lidardetection_tpu_torch.ops.vfe_cuda import (
+    channels_per_thread, pillar_vfe, pillar_vfe_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -34,15 +36,26 @@ def device():
     return torch.device('cuda')
 
 
-@pytest.mark.parametrize('p,c', [(32, 64), (20, 100), (70, 16)])
+@pytest.mark.parametrize('counts_case', ['random', 'empty', 'full', 'out of range'])
+@pytest.mark.parametrize('p,c', [(32, 64), (20, 100), (70, 16), (32, 1), (32, 4),
+                                 (32, 128), (20, 1024)])
 @pytest.mark.parametrize('w_dtype,out_dtype', [
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
     (torch.bfloat16, torch.float32)])
-def test_pillar_vfe_kernel_matches_plain(device, p, c, w_dtype, out_dtype):
+def test_pillar_vfe_kernel_matches_plain(device, p, c, w_dtype, out_dtype,
+                                         counts_case):
+    """B * V = 6002 pillars, a multiple of no block's pillars; C = 1 takes
+    the scalar path, the others 4 channels a thread (C = 100: 25 threads a
+    pillar, blocks of 125; C = 1024: a block a pillar); counts random in
+    [0, P], all 0, all P, or from -3 to P + 5."""
     rng = np.random.RandomState(p + c)
     b, v = 2, 3001
     counts = rng.randint(0, p + 1, (b, v)).astype(np.int32)
     counts[0, :3] = [0, p, 1]
+    counts = {'random': counts, 'empty': np.zeros_like(counts),
+              'full': np.full_like(counts, p),
+              'out of range': rng.randint(-3, p + 6, (b, v)).astype(np.int32),
+              }[counts_case]
     vox = rng.randn(b, v, p, 4).astype(np.float32) * 20
     ctr = np.concatenate([rng.randn(b, v, 3) * 20, np.zeros((b, v, 1))], -1)
     args = [torch.from_numpy(np.asarray(a, dtype)).to(device) for a, dtype in (
@@ -57,6 +70,31 @@ def test_pillar_vfe_kernel_matches_plain(device, p, c, w_dtype, out_dtype):
     want = pillar_vfe_plain(*args, out_dtype=out_dtype)
     # same operation order and no FMA contraction: bit-exact
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_pillar_vfe_paths(device):
+    """Which widths take 4 channels a thread, and a bias row that is not
+    16-byte aligned (a view one float into its buffer) taking the scalar
+    path."""
+    assert [channels_per_thread(c) for c in (1, 4, 64, 99, 100, 1024)] == \
+        [1, 4, 4, 1, 4, 4]
+    rng = np.random.RandomState(5)
+    b, v, p, c = 1, 1000, 32, 64
+    counts = torch.from_numpy(rng.randint(-1, p + 2, (b, v)).astype(np.int32))
+    pb = torch.from_numpy(rng.randn(b * v * c + 1).astype(np.float32))
+    args = [torch.from_numpy(rng.randn(b, v, p, 4).astype(np.float32)),
+            torch.from_numpy(rng.randn(b, v, 4).astype(np.float32)),
+            pb, counts,
+            torch.from_numpy(rng.randn(4, c).astype(np.float32)).bfloat16(),
+            torch.from_numpy(rng.randn(c).astype(np.float32))]
+    args = [a.to(device) for a in args]
+    args[2] = args[2][1:].view(b, v, c)
+    assert args[2].data_ptr() % 16 == 4
+    before = pillar_vfe.launches
+    got = pillar_vfe(*args)
+    torch.cuda.synchronize()
+    assert pillar_vfe.launches == before + 1
+    torch.testing.assert_close(got, pillar_vfe_plain(*args), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize('dtype,c', [(torch.bfloat16, 64), (torch.float32, 64),

@@ -56,6 +56,24 @@ def test_plain_matches_pallas_interpret(p):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize('p', [20, 32])  # the row-wise and the block-diagonal kernel
+def test_plain_matches_pallas_interpret_on_counts_out_of_range(p):
+    """Counts below 0 read as an empty pillar, counts above P as a full one,
+    in the kernel's plain version as in the Pallas kernel."""
+    vox, ctr, pb, counts, w4, shift = _kernel_inputs(p + 7, 1, 300, p, 64)
+    counts = np.random.RandomState(p).randint(-3, p + 6, (1, 300)).astype(np.int32)
+    counts[0, :4] = [-3, -1, p + 1, p + 5]
+    want = pillar_vfe_fused(jnp.asarray(vox), jnp.asarray(ctr),
+                            jnp.asarray(pb), jnp.asarray(counts),
+                            jnp.asarray(w4), jnp.asarray(shift),
+                            out_dtype=jnp.float32, interpret=True)
+    got = pillar_vfe_plain(
+        torch.from_numpy(vox), torch.from_numpy(ctr), torch.from_numpy(pb),
+        torch.from_numpy(counts), torch.from_numpy(w4).to(torch.bfloat16),
+        torch.from_numpy(shift), out_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize('out_dtype', [torch.float32, torch.bfloat16])
 def test_wrapper_takes_plain_version_on_cpu(out_dtype):
     args = [torch.from_numpy(a) for a in _kernel_inputs(3, 1, 300, 20, 48)]
