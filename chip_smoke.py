@@ -1,11 +1,12 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: PointPillar and
-SECOND, serving and training; PV-RCNN serving.
+SECOND, serving, training and evaluation; PV-RCNN serving.
 
     python3 chip_smoke.py        # from the repository root, one card
 
 Phases, each of which raises on failure (non-zero exit, no result line):
-  1. build the kernels of csrc/ with nvcc (one nvcc per source, together),
-     and read the timing floor (a one-element kernel under ``cuda_ms``);
+  1. build the kernels of csrc/ with nvcc (one nvcc per source, together)
+     and the KITTI protocol's host library (native/) with g++, and read
+     the timing floor (a one-element kernel under ``cuda_ms``);
   2. K1 and K2 against their plain PyTorch versions on the card, at the
      PointPillar path's shapes (40000-pillar table of voxelized synthetic
      scenes, P = 32, C = 64, 496 x 432 canvas, B = 1 and B = 4), bit-equal;
@@ -66,7 +67,20 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      per source, beside each ball query's prep;
  13. one f32 PV-RCNN request on the card with the kernels against the same
      request on the card with the plain versions (only the kernels differ);
- 14. one request of each detector and one training step of each trained
+ 14. evaluate through ``engine/evaluator.py::eval_one_epoch`` on the card,
+     PointPillar then SECOND at the yaml's full width and test cap, random
+     weights from a seed (class-logit bias 0), 4 synthetic scenes at B = 2,
+     launch counts set to 0 before every batch and checked after it
+     (PointPillar: 1 K1, 1 K2; SECOND: 12 K3, 1 K2); sec_per_example, the
+     recall counters and the live NMS candidates;
+ 15. the KITTI protocol with the native host library built by the
+     machine's g++: native against numpy plain version on both eval runs'
+     annos and on perfect predictions over 48 scenes (equal results; the
+     perfect set reads 100.0 for every class);
+ 16. precise-BN (``engine/bn_recalibrate.py``) on the card against the
+     CPU, f32, a reduced PointPillar, the same 3 batches: every statistics
+     leaf within 1e-3 of its largest magnitude;
+ 17. one request of each detector and one training step of each trained
      detector under torch.profiler (idle share, top kernels), after every
      timed phase; one K2 call under it: one kernel, no memset.
 The line before the last is the kernels' JSON, preceded by the card's name
@@ -90,6 +104,8 @@ N_REQUESTS_SECOND = 3
 N_REQUESTS_PVRCNN = 3
 TRAIN_BATCH = 4              # OPTIMIZATION.BATCH_SIZE_PER_GPU of both yamls
 TRAIN_WARMUP, TRAIN_STEPS = 2, 3
+EVAL_SCENES, EVAL_BATCH = 4, 2  # the eval phase, both detectors
+PERFECT_SCENES = 48          # the protocol check's perfect predictions
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12     # H100 SXM, dense bf16 on the tensor cores
@@ -1474,6 +1490,187 @@ def compare_train_phase(torch, trainer, cfg_file, batch, wrappers):
         check(rel_l2 <= 0.05, f'gradient, card, kernels vs {other}: L2 {rel_l2}')
 
 
+class CountedLoader:
+    """An eval loader whose batches are each one run of the main path: every
+    launch count set to 0 just before a batch is handed to the evaluator and
+    read when it asks for the next (the step of a batch ends before the
+    next is asked for). `per_batch` maps each kernel's wrapper to the
+    launches one batch must make."""
+
+    def __init__(self, loader, per_batch):
+        self.loader, self.per_batch = loader, per_batch
+        self.dataset = loader.dataset
+        self.total = {k.__name__: 0 for k in per_batch}
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for i, batch in enumerate(self.loader):
+            for k in self.per_batch:
+                k.launches = 0
+            yield batch
+            for k, each in self.per_batch.items():
+                check(k.launches == each, f'eval batch {i}: {k.__name__} '
+                      f'launched {k.launches} times, expected {each}')
+                self.total[k.__name__] += k.launches
+
+
+def eval_phase(torch, cfg_file, per_batch):
+    """The evaluation main path: ``engine/evaluator.py::eval_one_epoch`` on
+    the card over EVAL_SCENES synthetic scenes at EVAL_BATCH, the yaml's
+    full width and test cap, random weights from SEED with class-logit
+    bias 0 (live NMS candidates), after one warm-up batch through the same
+    eval step. Returns the launches of the run, the annos and the
+    dataset."""
+    import logging
+
+    from lidardetection_tpu_torch.config import cfg_from_yaml_file, dataset_info
+    from lidardetection_tpu_torch.datasets.synthetic import build_test_loader
+    from lidardetection_tpu_torch.engine.evaluator import eval_one_epoch
+    from lidardetection_tpu_torch.models import build_network
+    from lidardetection_tpu_torch.parallel.train_step import (
+        device_batch, make_eval_step,
+    )
+
+    cfg = cfg_from_yaml_file(cfg_file)
+    classes = list(cfg.CLASS_NAMES)
+    post = cfg.MODEL.POST_PROCESSING
+    model = build_network(cfg.MODEL, len(classes), dataset_info(cfg.DATA_CONFIG),
+                          seed=SEED).to('cuda')
+    with torch.no_grad():
+        model.dense_head.conv_cls_bias.zero_()
+    _, loader = build_test_loader(cfg, EVAL_BATCH, EVAL_SCENES, seed=SEED + 500)
+    make_eval_step(model, post, len(classes))(
+        device_batch(next(iter(loader)), 'cuda'))  # warm-up
+    torch.cuda.synchronize()
+    counted = CountedLoader(loader, per_batch)
+    result, annos = eval_one_epoch(model, counted, post, classes,
+                                   logging.getLogger('chip_smoke.eval'))
+    name = cfg.MODEL.NAME
+    recall = {k: v for k, v in result.items() if k.startswith('recall/')}
+    live = [a['num_candidates'] for a in annos]
+    kept = [len(a['name']) for a in annos]
+    print(f'{name} eval: {len(annos)} scenes at B={EVAL_BATCH}, '
+          f'sec_per_example {result["sec_per_example"]:.4f} s (host clock, '
+          f'voxelizing, forward, NMS and annos), recall {recall}, live NMS '
+          f'candidates min / median / max {min(live)} / '
+          f'{float(np.median(live)):.1f} / {max(live)}, kept {kept}, Car 3D '
+          f'moderate R40 {result["Car_3d/moderate_R40"]:.2f} (random weights)',
+          flush=True)
+    check(len(annos) == EVAL_SCENES and sorted(int(a['frame_id']) for a in annos)
+          == list(range(EVAL_SCENES)), f'{name} eval: one anno per scene')
+    check(all(np.isfinite(a['boxes_lidar']).all() and a['boxes_lidar'].shape
+              == (len(a['name']), 7) for a in annos), f'{name} eval: finite boxes')
+    check(min(live) > 0 and sum(kept) > 0, f'{name} eval: live candidates')
+    check(sorted(recall) == [f'recall/rcnn_{t}'
+                             for t in post.RECALL_THRESH_LIST]
+          and all(0 <= v <= 1 for v in recall.values()), f'{name} eval: recall')
+    check(result['sec_per_example'] > 0 and 'Car_3d/moderate_R40' in result,
+          f'{name} eval: the protocol ran')
+    return counted.total, annos, counted.dataset
+
+
+def protocol_phase(evals):
+    """The KITTI protocol on this machine (its native host library built by
+    the machine's g++ at the start of the run): on each eval run's annos and on perfect predictions (each
+    scene's gt as detections, score 1) over PERFECT_SCENES scenes, the
+    native path against the numpy plain version: equal result strings and
+    dicts (within 1e-9, the JAX package's own bar between them); the
+    perfect set reads 100.0 for every class's 3D moderate R40."""
+    from lidardetection_tpu_torch import native
+    from lidardetection_tpu_torch.datasets.synthetic import kitti_anno_from_lidar
+
+    runs = [(f'{name} eval annos', dataset, annos)
+            for name, (dataset, annos) in evals.items()]
+    dataset = next(iter(evals.values()))[0]
+    perfect = []
+    for i in range(PERFECT_SCENES):
+        _, boxes, names = dataset.scene(i)
+        anno = kitti_anno_from_lidar(boxes, names)
+        anno['frame_id'] = i
+        perfect.append(anno)
+    runs.append((f'perfect predictions, {PERFECT_SCENES} scenes', dataset,
+                 perfect))
+    classes = list(dataset.class_names)
+    for what, ds, annos in runs:
+        ms, out = [], []
+        for plain in (False, True):
+            t0 = time.perf_counter()
+            with native.plain_host(plain):
+                out.append(ds.evaluation(annos, classes))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        (s_nat, r_nat), (s_np, r_np) = out
+        diff = max(abs(float(r_nat[k]) - float(r_np[k])) for k in r_np)
+        print(f'KITTI protocol, {what}: native {ms[0]:.1f} ms, numpy plain '
+              f'{ms[1]:.1f} ms, largest result difference {diff:.3g}, Car 3D '
+              f'moderate R40 {r_nat["Car_3d/moderate_R40"]:.4f}', flush=True)
+        check(s_nat == s_np and list(r_nat) == list(r_np) and diff <= 1e-9,
+              f'{what}: native and numpy plain results equal')
+    check(all(r_nat[f'{c}_3d/moderate_R40'] == 100.0 for c in classes),
+          'perfect predictions read 100.0 for every class')
+
+
+def precise_bn_phase(torch):
+    """``recalibrate_bn_stats`` on the card against the same call on the CPU:
+    f32, the reduced PointPillar of the CPU tests (0.64 m pillars, one
+    layer a block, narrow filters), the same 3 training batches of 2
+    scenes. Every statistics leaf within 1e-3 of its largest magnitude."""
+    from lidardetection_tpu_torch.config import cfg_from_yaml_file, dataset_info
+    from lidardetection_tpu_torch.datasets.synthetic import SyntheticDataset
+    from lidardetection_tpu_torch.engine.bn_recalibrate import (
+        recalibrate_bn_stats,
+    )
+    from lidardetection_tpu_torch.models import build_network
+    from lidardetection_tpu_torch.ops.voxelize import build_batch
+    from lidardetection_tpu_torch.parallel.train_step import device_batch
+
+    cfg = cfg_from_yaml_file(CFG)
+    data, m = cfg.DATA_CONFIG, cfg.MODEL
+    vox = [p for p in data.DATA_PROCESSOR
+           if p.NAME == 'transform_points_to_voxels'][0]
+    m.COMPUTE_DTYPE = 'float32'
+    data.POINT_CLOUD_RANGE = [0, -40.96, -3, 71.68, 40.96, 1]
+    vox.VOXEL_SIZE = [0.64, 0.64, 4]
+    vox.MAX_NUMBER_OF_VOXELS = {'train': 6000, 'test': 6000}
+    m.VFE.NUM_FILTERS = [32]
+    m.MAP_TO_BEV.NUM_BEV_FEATURES = 32
+    m.BACKBONE_2D.LAYER_NUMS = [1, 1, 1]
+    m.BACKBONE_2D.NUM_FILTERS = [32, 32, 64]
+    m.BACKBONE_2D.NUM_UPSAMPLE_FILTERS = [32, 32, 32]
+    info = dataset_info(data)
+    dataset = SyntheticDataset(cfg.CLASS_NAMES, info['point_cloud_range'],
+                               num_scenes=6, seed=SEED + 600)
+    batches = []
+    for i in range(3):
+        scenes = [dataset[2 * i + j] for j in range(2)]
+        batch = build_batch([p for p, _ in scenes], info['point_cloud_range'],
+                            info['voxel_size'], int(vox.MAX_POINTS_PER_VOXEL),
+                            6000)
+        batch['gt_boxes'] = np.stack([gt for _, gt in scenes])
+        batches.append(batch)
+    models = {}
+    for dev in ('cuda', 'cpu'):
+        model = build_network(m, len(cfg.CLASS_NAMES), info, seed=SEED).to(dev)
+        recalibrate_bn_stats(model, batches, lambda b: device_batch(b, dev),
+                             n_batches=3)
+        models[dev] = model
+    worst, n_leaves = 0.0, 0
+    card = dict(models['cuda'].named_modules())
+    for name, mod in models['cpu'].named_modules():
+        for buf in getattr(mod, 'bn_statistics', ()):
+            want = getattr(mod, buf)
+            got = getattr(card[name], buf).cpu()
+            top = float(want.abs().max())
+            err = float((got - want).abs().max()) / top
+            check(top > 0 and err <= 1e-3, f'precise-BN {name}.{buf} card vs cpu')
+            worst, n_leaves = max(worst, err), n_leaves + 1
+    check(n_leaves == 20, f'precise-BN: 20 statistics leaves ({n_leaves})')
+    print(f'precise-BN card vs cpu (f32, reduced PointPillar, 3 batches of 2): '
+          f'{n_leaves} leaves, largest max|card - cpu| / max|cpu| = {worst:.3g} '
+          f'(tolerance 1e-3)', flush=True)
+
+
 def main():
     import torch
 
@@ -1495,6 +1692,13 @@ def main():
             if 'registers' in line or 'spill' in line or (
                     name.startswith('sparse_conv') and 'Compiling entry' in line):
                 print(f'  {name}.cu: {line.strip()}', flush=True)
+    from lidardetection_tpu_torch import native
+    built = not native.library_path().exists()
+    t0 = time.perf_counter()
+    native.load()
+    print(f'{"built" if built else "found"} the KITTI protocol\'s host library '
+          f'{native.library_path().name} in {time.perf_counter() - t0:.1f} s '
+          f'(g++ {" ".join(native.CXX_FLAGS)})', flush=True)
     # the TF32 flags stay as PyTorch sets them: the port holds its f32
     # configs in f32 itself (utils/precision.py), as a user's run sees it
 
@@ -1581,6 +1785,16 @@ def main():
     k3.update(k3_step)
     compare_train_phase(torch, trainer, CFG_SECOND, batches[-1], wrappers)
 
+    print('== evaluation ==', flush=True)
+    launches_eval, annos, dataset = eval_phase(
+        torch, CFG, dict(zip(wrappers, (1, 1, 0, 0, 0))))
+    evals = {'PointPillar': (dataset, annos)}
+    launches_eval_second, annos, dataset = eval_phase(
+        torch, CFG_SECOND, dict(zip(wrappers, (0, 1, 12, 0, 0))))
+    evals['SECONDNet'] = (dataset, annos)
+    protocol_phase(evals)
+    precise_bn_phase(torch)
+
     print('== under the profiler ==', flush=True)
     scatter_launch_count(torch, *scatter_case)
     for det, points in profiled:
@@ -1589,11 +1803,13 @@ def main():
         profile_run(torch, f'{each.cfg["MODEL"]["NAME"]} training step',
                     lambda: each.step(batch))
 
-    # launches: the sum over the five main paths' runs, each counted from 0
+    # launches: the sum over the seven main paths' runs, each counted from 0
     runs = {'PointPillar serving': launches, 'SECONDNet serving': launches_second,
             'PVRCNN serving': launches_pvrcnn,
             'PointPillar training': launches_train,
-            'SECONDNet training': launches_train_second}
+            'SECONDNet training': launches_train_second,
+            'PointPillar eval': launches_eval,
+            'SECONDNet eval': launches_eval_second}
     kernels = [k1, k2, k3, k4, k5]
     for k in kernels:
         k['launches'] = sum(run.get(k['name'], 0) for run in runs.values())

@@ -1,9 +1,18 @@
 """Synthetic LiDAR scenes (copy of lidardetection_tpu/datasets/synthetic.py
 ``make_scene`` and ``_beam_ground``): deterministic request clouds made
-from a seed, for the server's CLI and the chip smoke run.
+from a seed, for the server's CLI and the chip smoke run; the training set
+and its loader; and the eval side (``SyntheticCalib``,
+``kitti_anno_from_lidar``, the dataset's ``generate_prediction_dicts`` and
+``evaluation``, and the test-mode loader of ``build_test_loader``).
 """
 
+import warnings
+
 import numpy as np
+
+from ..config import dataset_info, voxel_processor_cfg
+from ..core import np_geometry as npg
+from ..ops.voxelize import build_batch
 
 CLASS_SIZE = {
     'Car': (3.9, 1.6, 1.56),
@@ -119,12 +128,14 @@ def boxes_in_range(boxes, limit_range, min_num_corners=1):
 
 
 def pad_gt_boxes(gt_boxes, gt_names, class_names, point_cloud_range,
-                 max_gt_boxes=64):
-    """Training ground truth of one scene: (max_gt_boxes, 8) float32, the
-    1-based class id last and 0 marking a padding row. Boxes of other
-    classes or wholly outside the range are dropped."""
+                 max_gt_boxes=64, in_range_only=True):
+    """Ground truth of one scene: (max_gt_boxes, 8) float32, the 1-based
+    class id last and 0 marking a padding row. Boxes of other classes are
+    dropped, and with `in_range_only` (training) those wholly outside the
+    range too; test mode keeps them, as the JAX package's
+    ``DatasetTemplate.prepare_data`` does."""
     keep = np.array([n in class_names for n in gt_names], dtype=bool)
-    if keep.any():
+    if keep.any() and in_range_only:
         keep[keep] = boxes_in_range(gt_boxes[keep], point_cloud_range)
     classes = np.array([class_names.index(n) + 1 for n in gt_names[keep]],
                        np.float32)
@@ -136,43 +147,83 @@ def pad_gt_boxes(gt_boxes, gt_names, class_names, point_cloud_range,
 
 
 class SyntheticDataset:
-    """In-memory training set of `num_scenes` scenes made from `seed`
-    (scene i from ``RandomState(seed * 100003 + i)``, as the JAX package's
+    """In-memory set of `num_scenes` scenes made from `seed` (scene i from
+    ``RandomState(seed * 100003 + i)``, as the JAX package's
     SyntheticDataset draws them). Items are ``(points (N, 4), gt_boxes
-    (max_gt_boxes, 8))``. No augmentation."""
+    (max_gt_boxes, 8))``; in test mode (``training=False``) gt boxes outside
+    the range are kept and an item also carries its index, the frame id:
+    ``(points, gt_boxes, frame_id)``. No augmentation."""
 
     def __init__(self, class_names, point_cloud_range, num_scenes=64, seed=0,
-                 max_gt_boxes=64):
+                 max_gt_boxes=64, training=True):
         self.class_names = tuple(class_names)
         self.point_cloud_range = np.asarray(point_cloud_range, np.float32)
         self.num_scenes, self.seed = num_scenes, seed
-        self.max_gt_boxes = max_gt_boxes
+        self.max_gt_boxes, self.training = max_gt_boxes, training
 
     def __len__(self):
         return self.num_scenes
 
-    def __getitem__(self, index):
+    def scene(self, index):
+        """Scene `index`: (points (N, 4), gt_boxes (M, 7), gt_names (M,))."""
         rng = np.random.RandomState(self.seed * 100003 + index)
-        points, gt_boxes, gt_names = make_scene(
-            rng, self.point_cloud_range, class_names=self.class_names)
-        return points, pad_gt_boxes(gt_boxes, gt_names, self.class_names,
-                                    self.point_cloud_range, self.max_gt_boxes)
+        return make_scene(rng, self.point_cloud_range,
+                          class_names=self.class_names)
+
+    def __getitem__(self, index):
+        points, gt_boxes, gt_names = self.scene(index)
+        gt = pad_gt_boxes(gt_boxes, gt_names, self.class_names,
+                          self.point_cloud_range, self.max_gt_boxes,
+                          in_range_only=self.training)
+        return (points, gt) if self.training else (points, gt, index)
+
+    def generate_prediction_dicts(self, batch_dict, pred_dicts, class_names):
+        """KITTI annos of a batch's kept detections (numpy `pred_dicts`,
+        padded, with ``num_preds``)."""
+        annos = []
+        for i in range(batch_dict['batch_size']):
+            n = int(pred_dicts['num_preds'][i])
+            boxes = np.asarray(pred_dicts['pred_boxes'][i][:n])
+            labels = np.asarray(pred_dicts['pred_labels'][i][:n]).astype(int)
+            names = np.array([class_names[l - 1] for l in labels])
+            scores = np.asarray(pred_dicts['pred_scores'][i][:n])
+            anno = kitti_anno_from_lidar(boxes, names, scores)
+            anno['frame_id'] = batch_dict['frame_id'][i]
+            annos.append(anno)
+        return annos
+
+    def evaluation(self, det_annos, class_names, **kwargs):
+        """Official KITTI-protocol AP against the generating gt boxes, each
+        frame's remade from its seed."""
+        from .kitti.kitti_object_eval import eval as kitti_eval
+
+        gt_annos = []
+        for det in det_annos:
+            _, gt_boxes, gt_names = self.scene(int(det['frame_id']))
+            gt_annos.append(kitti_anno_from_lidar(gt_boxes, gt_names))
+        return kitti_eval.get_official_eval_result(
+            gt_annos, det_annos, class_names)
 
 
 class SyntheticLoader:
-    """Batches of a dataset, collated by `collate` (``Trainer.make_batch``)
-    into the keys the train step reads. Drops the last partial batch; the
-    order is reshuffled per epoch from `seed` when `shuffle`."""
+    """Batches of a dataset, collated by `collate` (``Trainer.make_batch``,
+    or the test-mode collate of ``build_test_loader``). Drops the last
+    partial batch when `drop_last`; the order is reshuffled per epoch from
+    `seed` when `shuffle`."""
 
-    def __init__(self, dataset, batch_size, collate, shuffle=True, seed=0):
+    def __init__(self, dataset, batch_size, collate, shuffle=True, seed=0,
+                 drop_last=True):
         self.dataset, self.batch_size, self.collate = dataset, batch_size, collate
         self.shuffle, self.seed, self.epoch = shuffle, seed, 0
+        self.drop_last = drop_last
 
     def set_epoch(self, epoch):
         self.epoch = epoch
 
     def __len__(self):
-        return len(self.dataset) // self.batch_size
+        if self.drop_last:
+            return len(self.dataset) // self.batch_size
+        return -(-len(self.dataset) // self.batch_size)
 
     def __iter__(self):
         order = np.arange(len(self.dataset))
@@ -181,3 +232,100 @@ class SyntheticLoader:
         for i in range(len(self)):
             ids = order[i * self.batch_size:(i + 1) * self.batch_size]
             yield self.collate([self.dataset[j] for j in ids])
+
+
+def build_test_loader(cfg, batch_size, num_scenes, seed=0):
+    """The test-mode set and loader of a config (the JAX package's
+    ``build_dataloader(training=False)`` on its synthetic set): scenes in
+    order, every one of them, points not shuffled, voxelized on the host at
+    the config's ``test`` cap. A batch is a dict of numpy arrays: the
+    voxel table, the padded ``gt_boxes`` that the recall counters read,
+    ``frame_id`` and ``batch_size``. Warns when a scene fills the cap: the
+    table then keeps the first voxels in scan order, a spatially biased
+    crop."""
+    data_cfg = cfg['DATA_CONFIG']
+    info = dataset_info(data_cfg)
+    vox = voxel_processor_cfg(data_cfg)
+    max_voxels = int(vox['MAX_NUMBER_OF_VOXELS']['test'])
+    dataset = SyntheticDataset(
+        cfg['CLASS_NAMES'], info['point_cloud_range'], num_scenes=num_scenes,
+        seed=seed, max_gt_boxes=int(data_cfg.get('MAX_GT_BOXES', 64)),
+        training=False)
+
+    def collate(items):
+        batch = build_batch([points for points, _, _ in items],
+                            info['point_cloud_range'], info['voxel_size'],
+                            int(vox['MAX_POINTS_PER_VOXEL']), max_voxels)
+        if (batch['num_voxels'] >= max_voxels).any():
+            warnings.warn(f'MAX_NUMBER_OF_VOXELS[test]={max_voxels} saturated: '
+                          f'eval truncation keeps the first voxels in scan '
+                          f'order and can zero AP; raise the cap',
+                          RuntimeWarning, stacklevel=2)
+        batch['gt_boxes'] = np.stack([gt for _, gt, _ in items])
+        batch['frame_id'] = np.array([i for _, _, i in items])
+        batch['batch_size'] = len(items)
+        return batch
+
+    return dataset, SyntheticLoader(dataset, batch_size, collate,
+                                    shuffle=False, drop_last=False)
+
+
+class SyntheticCalib:
+    """Canonical lidar->rect mapping (x_c=-y_l, y_c=-z_l, z_c=x_l) plus a
+    wide synthetic pinhole (f=1000, 2000x6000 image) so boxes anywhere in
+    the point-cloud range project to image bboxes large enough for the
+    KITTI difficulty gates (MIN_HEIGHT 40/25/25 px of the protocol)."""
+
+    IMAGE_SHAPE = (2000, 6000)  # (H, W)
+
+    def __init__(self):
+        self.V2C = np.array([[0., -1., 0., 0.],
+                             [0., 0., -1., 0.],
+                             [1., 0., 0., 0.]])
+        self.R0 = np.eye(3)
+        self.P2 = np.array([[1000., 0., 3000., 0.],
+                            [0., 1000., 1000., 0.],
+                            [0., 0., 1., 0.]])
+
+    def lidar_to_rect(self, pts_lidar):
+        hom = np.concatenate(
+            [pts_lidar, np.ones((pts_lidar.shape[0], 1))], axis=1)
+        return hom @ (self.V2C.T @ self.R0.T)
+
+    def rect_to_img(self, pts_rect):
+        hom = np.concatenate(
+            [pts_rect, np.ones((pts_rect.shape[0], 1))], axis=1)
+        p = hom @ self.P2.T
+        z = np.maximum(p[:, 2], 0.1)  # clamp behind-camera points
+        img = p[:, 0:2] / z[:, None]
+        return img, p[:, 2] - self.P2.T[3, 2]
+
+
+def kitti_anno_from_lidar(boxes_lidar, names, scores=None):
+    """Lidar boxes (N, 7) -> full KITTI camera-protocol anno dict."""
+    calib = SyntheticCalib()
+    n = len(boxes_lidar)
+    boxes_lidar = np.asarray(boxes_lidar, np.float64).reshape(n, 7)
+    if n:
+        cam = npg.boxes3d_lidar_to_kitti_camera(boxes_lidar, calib)
+        bbox = npg.boxes3d_kitti_camera_to_imageboxes(
+            cam, calib, image_shape=SyntheticCalib.IMAGE_SHAPE)
+        alpha = (-np.arctan2(-boxes_lidar[:, 1], boxes_lidar[:, 0])
+                 + cam[:, 6])
+    else:
+        cam = np.zeros((0, 7))
+        bbox = np.zeros((0, 4))
+        alpha = np.zeros(0)
+    return {
+        'name': np.asarray(names),
+        'truncated': np.zeros(n),
+        'occluded': np.zeros(n, np.int64),
+        'alpha': alpha,
+        'bbox': bbox,
+        'dimensions': cam[:, 3:6],
+        'location': cam[:, 0:3],
+        'rotation_y': cam[:, 6],
+        'score': (np.asarray(scores) if scores is not None
+                  else np.ones(n)),
+        'boxes_lidar': boxes_lidar,
+    }

@@ -14,7 +14,9 @@ part and the max over points run in kernel K1 (ops/vfe_cuda.py).
 Training needs the batch statistics of the per-point activations, so it
 materializes the (B, V, P, 10) @ (10, C) product in the compute dtype, as
 the JAX package does, and shares ``pfn_kernel`` and ``pfn_bn_*`` with the
-eval branch.
+eval branch. Its BatchNorm statistics ``pfn_mean``/``pfn_var`` move by
+``momentum`` (named in ``bn_statistics`` for precise-BN,
+engine/bn_recalibrate.py).
 """
 
 import torch
@@ -34,6 +36,8 @@ class MeanVFE(nn.Module):
 
 
 class PillarVFE(nn.Module):
+    bn_statistics = ('pfn_mean', 'pfn_var')
+
     def __init__(self, model_cfg, num_point_features, voxel_size,
                  point_cloud_range, dtype=None, generator=None):
         super().__init__()
@@ -57,6 +61,7 @@ class PillarVFE(nn.Module):
         self.pfn_bn_bias = nn.Parameter(torch.zeros(c))
         self.register_buffer('pfn_mean', torch.zeros(c))
         self.register_buffer('pfn_var', torch.ones(c))
+        self.momentum = BN_MOMENTUM
 
     def forward(self, batch):
         voxels = batch['voxels']  # (B, V, P, 4)
@@ -119,10 +124,9 @@ class PillarVFE(nn.Module):
         mean = s1 / cnt
         var = (s2 / cnt - mean * mean).clamp(min=0.0)
         with torch.no_grad():
-            self.pfn_mean.copy_(BN_MOMENTUM * self.pfn_mean
-                                + (1 - BN_MOMENTUM) * mean)
-            self.pfn_var.copy_(BN_MOMENTUM * self.pfn_var
-                               + (1 - BN_MOMENTUM) * var)
+            m = self.momentum
+            self.pfn_mean.copy_(m * self.pfn_mean + (1 - m) * mean)
+            self.pfn_var.copy_(m * self.pfn_var + (1 - m) * var)
         inv = torch.rsqrt(var + BN_EPS) * self.pfn_bn_scale
         shift = self.pfn_bn_bias - mean * inv
         x = z * inv.to(z.dtype) + shift.to(z.dtype)

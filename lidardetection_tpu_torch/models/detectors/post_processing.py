@@ -10,13 +10,14 @@ logit space. Its ``approx_max_k`` over pixels (batch > 1) is an exact
 top-k here. A two-stage head (PV-RCNN) hands decoded boxes: the sigmoid
 probabilities are thresholded and NMS'd, labelled by ``roi_labels``.
 Outputs are padded to NMS_POST_MAXSIZE with a mask and a count, as in the
-JAX package.
+JAX package. ``compute_recall`` counts the gt boxes that the kept boxes
+(and the RoIs) cover, for the evaluator.
 """
 
 import numpy as np
 import torch
 
-from ...core.iou3d import nms_bev_batched, top_k
+from ...core.iou3d import boxes_iou3d, nms_bev_batched, top_k
 
 VARIANTS_NOT_PORTED = 'see ROADMAP.md queue 1, "Variants"'
 
@@ -139,3 +140,40 @@ def _kept(box_preds, scores, labels, idx, mask, num, live):
         'num_preds': num,
         'num_candidates': live.sum(1),
     }
+
+
+def compute_recall(pred_boxes, pred_mask, gt_boxes, thresh_list, rois=None,
+                   roi_mask=None):
+    """Recall counters against the gt (post_processing.py:182 of the JAX
+    package, generate_recall_record in the reference).
+
+    Args:
+        pred_boxes (B, N, 7+), pred_mask (B, N) bool, gt_boxes (B, G, 8)
+        with the class last (0 = padding); rois (B, R, 7+) and roi_mask
+        (B, R) optional.
+    Returns a dict of 0-d int64 tensors: 'gt', the count of valid gt boxes,
+    and 'rcnn_<t>' (and 'roi_<t>' with rois), the count of valid gt boxes
+    whose best 3D IoU with a kept box (an RoI) is above t. The IoU is
+    elementwise float32 (core/iou3d.py).
+    """
+    gt_valid = gt_boxes[..., -1] > 0  # (B, G)
+
+    def best_iou(boxes, mask):
+        best = []
+        for b in range(boxes.shape[0]):
+            iou = boxes_iou3d(boxes[b, :, :7].float(),
+                              gt_boxes[b, :, :7].float())  # (N, G)
+            iou = torch.where(mask[b][:, None] & gt_valid[b][None, :], iou,
+                              torch.zeros_like(iou))
+            best.append(iou.amax(0))
+        return torch.stack(best)  # (B, G)
+
+    best = best_iou(pred_boxes, pred_mask)
+    out = {'gt': gt_valid.sum()}
+    for t in thresh_list:
+        out[f'rcnn_{t}'] = ((best > t) & gt_valid).sum()
+    if rois is not None:
+        best_roi = best_iou(rois, roi_mask)
+        for t in thresh_list:
+            out[f'roi_{t}'] = ((best_roi > t) & gt_valid).sum()
+    return out

@@ -44,8 +44,11 @@ class MaskedBatchNorm(nn.Module):
     Masked-out entries are still normalized. It is written with tensor
     operations, so autograd differentiates through the statistics;
     ``torch.nn.functional.batch_norm`` computes neither the mask nor the
-    biased running variance.
+    biased running variance. ``bn_statistics`` names the running buffers
+    for precise-BN (engine/bn_recalibrate.py).
     """
+
+    bn_statistics = ('mean', 'var')
 
     def __init__(self, features, axis=1, eps=BN_EPS, momentum=BN_MOMENTUM):
         super().__init__()

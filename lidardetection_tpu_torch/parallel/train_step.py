@@ -1,4 +1,5 @@
-"""The training step (lidardetection_tpu/parallel/train_step.py:21-103).
+"""The training and eval steps (lidardetection_tpu/parallel/train_step.py:
+21-123).
 
 `TrainState` holds what a step changes: the model (parameters and BatchNorm
 statistics) and the optimizer (moments and the step count).
@@ -7,10 +8,13 @@ forward, loss, backward, then one optimizer step (clip, Adam, weight decay).
 The forward runs once, so the BatchNorm statistics move once a step.
 Parameters are updated in place. A float32 model steps in float32 whatever
 the process's TF32 and matmul-precision flags are (``utils/precision.py``).
+``make_eval_step`` returns ``step(batch) -> preds``: the eval forward,
+post-processing and the recall counters.
 """
 
 import torch
 
+from ..models.detectors.post_processing import compute_recall, post_processing
 from ..utils.precision import full_f32
 
 # batch keys the step reads; ``rb_*`` (host-built rulebooks) ride along
@@ -57,5 +61,29 @@ def make_train_step(state):
             loss.backward()
             optimizer.step()
         return {k: v.detach() for k, v in tb.items()}
+
+    return step
+
+
+def make_eval_step(model, post_cfg, num_class):
+    """step(batch) -> the post-processed predictions of
+    ``models/detectors/post_processing.py`` (padded, with ``num_preds`` and
+    ``num_candidates``, the live rows entering NMS), plus ``recall``, the
+    counters of ``compute_recall`` over RECALL_THRESH_LIST, when the batch
+    carries ``gt_boxes``. Runs the model in eval mode under
+    ``torch.inference_mode()``, in float32 whatever the process flags for
+    a float32 model, as ``serve.Detector`` does."""
+    def step(batch):
+        model.eval()
+        with torch.inference_mode(), \
+                full_f32(model.compute_dtype == torch.float32):
+            out = model(batch)
+            preds = post_processing(out, post_cfg, num_class)
+            if 'gt_boxes' in batch:
+                preds['recall'] = compute_recall(
+                    preds['pred_boxes'], preds['pred_mask'],
+                    batch['gt_boxes'], tuple(post_cfg['RECALL_THRESH_LIST']),
+                    rois=out.get('rois'), roi_mask=out.get('roi_valid'))
+        return preds
 
     return step

@@ -64,3 +64,21 @@ def restore_checkpoint(path, state, logger=None):
     if logger:
         logger.info('restored %s (epoch %d, step %d)', path, epoch, state.step)
     return epoch
+
+
+def restore_model(path, model, logger=None):
+    """Load a checkpoint's parameters and BatchNorm statistics into a bare
+    model (no optimizer), on the model's device; returns the epoch it was
+    saved after."""
+    device = next(model.parameters()).device
+    loaded = torch.load(path, map_location=device, weights_only=True)
+    model.load_state_dict(loaded['model'])
+    epoch = int(loaded.get('meta', {}).get('epoch', 0))
+    if logger:
+        logger.info('restored the model of %s (epoch %d)', path, epoch)
+    return epoch
+
+
+def checkpoint_epoch(path):
+    """The epoch in a checkpoint's name (0 for None)."""
+    return int(_NAME.fullmatch(Path(path).name).group(1)) if path else 0
