@@ -1,5 +1,5 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: PointPillar and
-SECOND, serving, training and evaluation; PV-RCNN serving.
+SECOND, serving, training and evaluation; PV-RCNN serving and training.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -52,35 +52,48 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      card (only the kernels differ: every gradient leaf within 1e-3) and on
      the CPU (the dense library differs too: looser, the sparse backbone's
      leaves within 1e-2), same weights and batch, both detectors;
- 11. serve requests through ``serve.Detector`` on the full
+ 11. train PV-RCNN through ``train.Trainer`` at full width (the yaml's
+     train cap of 16000 voxels, B = 2, bf16, adam_onecycle, 2048
+     keypoints, proposal NMS 9000 -> 512, 128 sampled RoIs, dropout 0.3):
+     2 warm-up and 3 timed steps, launch counts set to 0 before every step
+     and checked after it: 12 K3 forward + 7 K3 submanifold df, 12 K4, 1
+     K2 (HeightCompression's scatter; its backward is a gather) and 5 K5
+     (the VSA's raw-point and x_conv1-4 ball queries; no backward) a step,
+     no K1; finite loss and gradients, BatchNorm statistics moved, peak
+     memory; one step split by forward (the proposal layer, its NMS and
+     the anchor, point and RoI target assigners apart), backward and
+     optimizer; one f32 step with the kernels against the plain versions
+     on the card, both drawing from the same per-step generator: the same
+     sampled RoIs, then every gradient leaf within 1e-3;
+ 12. serve requests through ``serve.Detector`` on the full
      tools/cfgs/kitti_models/pv_rcnn.yaml (bf16, 2048 keypoints, 40000
      voxels, 131072 raw points of capacity), launch counts set to 0 before
      every request and checked after it (12 K3, 1 K2, 5 K5); the forward
      split by module, FPS, the five ball queries and the proposal layer
      apart;
- 12. K5 against its plain version on the card on the five sources' (table,
+ 13. K5 against its plain version on the card on the five sources' (table,
      runs, centres) of a real request at B = 1 and B = 2, with the original
      indices shuffled or descending along each run, with a third of the
      centres invalid, with nsample 1 and 64, on a cloud whose cells hold
      more than the 64 cap, and with every candidate of that cloud's runs in
      radius (more hits than a warp's buffer holds): bit-equal; its times
      per source, beside each ball query's prep;
- 13. one f32 PV-RCNN request on the card with the kernels against the same
+ 14. one f32 PV-RCNN request on the card with the kernels against the same
      request on the card with the plain versions (only the kernels differ);
- 14. evaluate through ``engine/evaluator.py::eval_one_epoch`` on the card,
+ 15. evaluate through ``engine/evaluator.py::eval_one_epoch`` on the card,
      PointPillar then SECOND at the yaml's full width and test cap, random
      weights from a seed (class-logit bias 0), 4 synthetic scenes at B = 2,
      launch counts set to 0 before every batch and checked after it
      (PointPillar: 1 K1, 1 K2; SECOND: 12 K3, 1 K2); sec_per_example, the
      recall counters and the live NMS candidates;
- 15. the KITTI protocol with the native host library built by the
+ 16. the KITTI protocol with the native host library built by the
      machine's g++: native against numpy plain version on both eval runs'
      annos and on perfect predictions over 48 scenes (equal results; the
      perfect set reads 100.0 for every class);
- 16. precise-BN (``engine/bn_recalibrate.py``) on the card against the
+ 17. precise-BN (``engine/bn_recalibrate.py``) on the card against the
      CPU, f32, a reduced PointPillar, the same 3 batches: every statistics
      leaf within 1e-3 of its largest magnitude;
- 17. one request of each detector and one training step of each trained
+ 18. one request of each detector and one training step of each trained
      detector under torch.profiler (idle share, top kernels), after every
      timed phase; one K2 call under it: one kernel, no memset.
 The line before the last is the kernels' JSON, preceded by the card's name
@@ -102,7 +115,7 @@ SEED = 0
 N_REQUESTS = 3               # PointPillar
 N_REQUESTS_SECOND = 3
 N_REQUESTS_PVRCNN = 3
-TRAIN_BATCH = 4              # OPTIMIZATION.BATCH_SIZE_PER_GPU of both yamls
+TRAIN_BATCH = 4              # BATCH_SIZE_PER_GPU of pointpillar and second
 TRAIN_WARMUP, TRAIN_STEPS = 2, 3
 EVAL_SCENES, EVAL_BATCH = 4, 2  # the eval phase, both detectors
 PERFECT_SCENES = 48          # the protocol check's perfect predictions
@@ -785,20 +798,25 @@ def compare_kept(pg, pc, dmax, i):
 
 
 def train_batches(trainer, n, seed):
-    """n training batches of TRAIN_BATCH synthetic scenes each, on the card,
-    and the median host time of `make_batch`."""
+    """n training batches of the yaml's BATCH_SIZE_PER_GPU synthetic scenes
+    each, on the card, and the median host time of `make_batch`."""
     from lidardetection_tpu_torch.datasets.synthetic import SyntheticDataset
 
+    size = train_batch_size(trainer)
     dataset = SyntheticDataset(
         trainer.class_names, trainer.info['point_cloud_range'],
-        num_scenes=n * TRAIN_BATCH, seed=seed, max_gt_boxes=trainer.max_gt_boxes)
+        num_scenes=n * size, seed=seed, max_gt_boxes=trainer.max_gt_boxes)
     batches, ms = [], []
     for i in range(n):
-        scenes = [dataset[i * TRAIN_BATCH + j] for j in range(TRAIN_BATCH)]
+        scenes = [dataset[i * size + j] for j in range(size)]
         t0 = time.perf_counter()
         batches.append(trainer.make_batch(scenes))
         ms.append((time.perf_counter() - t0) * 1e3)
     return batches, float(np.median(ms))
+
+
+def train_batch_size(trainer):
+    return int(trainer.cfg['OPTIMIZATION']['BATCH_SIZE_PER_GPU'])
 
 
 def finite_gradients(torch, model):
@@ -861,7 +879,8 @@ def train_phase(torch, trainer, batches, per_step):
                 total[key] += n
     check(trainer.state.step == len(batches), 'the optimizer counted the steps')
     print(json.dumps({
-        'config': name, 'train_steps': len(host_ms), 'batch_size': TRAIN_BATCH,
+        'config': name, 'train_steps': len(host_ms),
+        'batch_size': train_batch_size(trainer),
         'p50_step_ms': float(np.median(host_ms)),
         'p50_step_device_ms': float(np.median(device_ms)),
         'peak_memory_mib': torch.cuda.max_memory_allocated() / 2 ** 20}),
@@ -869,34 +888,88 @@ def train_phase(torch, trainer, batches, per_step):
     return total
 
 
-def step_split(torch, trainer, batch, repeats=3):
+def step_split(torch, trainer, batch, repeats=3, functions=()):
     """One training step by forward (with the loss) / backward / optimizer:
     host clock with the device drained between the parts, median of
-    `repeats`. Returns the medians in ms."""
+    `repeats`; inside the forward, each function of `functions` (owner,
+    attribute, label) apart, the device drained around each call. The
+    random layers draw as ``Trainer.step`` does. Returns the medians in
+    ms."""
+    from lidardetection_tpu_torch.parallel.train_step import step_draw
+
     model, optimizer = trainer.model, trainer.state.optimizer
-    runs = []
-    for _ in range(repeats):
-        for p in optimizer.params:
-            p.grad = None
-        marks = []
+    spans, wrapped = {}, []
 
-        def mark():
+    def timed(label, fn):
+        def run(*args, **kwargs):
             torch.cuda.synchronize()
-            marks.append(time.perf_counter())
+            start = time.perf_counter()
+            result = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans[label] = spans.get(label, 0.0) \
+                + (time.perf_counter() - start) * 1e3
+            return result
+        return run
 
-        mark()
-        loss, _ = model.loss(model(batch))
-        mark()
-        loss.backward()
-        mark()
-        optimizer.step()
-        mark()
-        runs.append(np.diff(marks) * 1e3)
-    split = dict(zip(('forward', 'backward', 'optimizer'),
-                     np.median(runs, axis=0).tolist()))
+    for owner, attr, label in functions:
+        wrapped.append((owner, attr, getattr(owner, attr)))
+        setattr(owner, attr, timed(label, getattr(owner, attr)))
+    runs = []
+    try:
+        for _ in range(repeats):
+            for p in optimizer.params:
+                p.grad = None
+            spans.clear()
+            marks = []
+
+            def mark():
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+
+            draw = step_draw(trainer.seed, trainer.state.step, 'cuda')
+            mark()
+            loss, _ = model.loss(model(batch, draw))
+            mark()
+            check(bool(torch.isfinite(loss)), 'step split: a finite loss')
+            loss.backward()
+            mark()
+            optimizer.step()
+            mark()
+            runs.append(dict(zip(('forward', 'backward', 'optimizer'),
+                                 (np.diff(marks) * 1e3).tolist()), **spans))
+    finally:
+        for owner, attr, fn in wrapped:
+            setattr(owner, attr, fn)
+    split = {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
     print(f'{trainer.cfg["MODEL"]["NAME"]} step split, ms (device drained '
-          'between the parts): '
-          + ', '.join(f'{k} {v:.2f}' for k, v in split.items()), flush=True)
+          'between the parts'
+          + (' and around each function inside the forward' if functions else '')
+          + '): ' + ', '.join(f'{k} {v:.2f}' for k, v in split.items()),
+          flush=True)
+    return split
+
+
+def pvrcnn_step_split(torch, trainer, batch):
+    """The PV-RCNN step split, with the proposal layer (its NMS over 9000
+    candidates apart) and the three target assigners (anchors, points,
+    RoIs) timed inside the forward."""
+    from lidardetection_tpu_torch.models.dense_heads import (
+        point_head, target_assigner,
+    )
+    from lidardetection_tpu_torch.models.roi_heads import roi_head_utils
+
+    split = step_split(torch, trainer, batch, functions=(
+        (target_assigner, 'assign_targets', 'anchor targets'),
+        (point_head, 'assign_point_targets', 'point targets'),
+        (roi_head_utils, 'proposal_layer', 'proposal layer'),
+        (roi_head_utils, 'nms_bev_batched', 'proposal NMS'),
+        (roi_head_utils, 'assign_roi_targets', 'RoI targets')))
+    step = split['forward'] + split['backward'] + split['optimizer']
+    print(f'PV-RCNN step: {step:.2f} ms split; the proposal layer '
+          f'{split["proposal layer"]:.2f} ms ({split["proposal layer"] / step:.3f} '
+          f'of the step; its NMS {split["proposal NMS"]:.2f}), the targets '
+          f'{split["anchor targets"] + split["point targets"] + split["RoI targets"]:.2f} '
+          'ms', flush=True)
     return split
 
 
@@ -1437,27 +1510,40 @@ def compare_train_phase(torch, trainer, cfg_file, batch, wrappers):
     and every leaf below it inherits the difference, whole entries of a
     leaf at a time. So there the loss terms are held within 1e-3 relative,
     every leaf within 0.2 in relative L2 norm and the whole gradient within
-    0.05; a wrong kernel shows as an error of order 1 in both comparisons."""
+    0.05; a wrong kernel shows as an error of order 1 in both comparisons.
+
+    A detector with an RoI head (PV-RCNN) is compared on the card alone,
+    both runs drawing from the same per-step generator: on the CPU its
+    point ops take their exact paths and a CPU generator draws other
+    numbers. Its two runs must first sample the same RoIs."""
     from lidardetection_tpu_torch.config import cfg_from_yaml_file
+    from lidardetection_tpu_torch.parallel.train_step import step_draw
     from lidardetection_tpu_torch.train import Trainer
     from lidardetection_tpu_torch.utils.precision import full_f32
 
     cfg = cfg_from_yaml_file(cfg_file)
     cfg.MODEL.COMPUTE_DTYPE = 'float32'
+    two_stage = bool(cfg.MODEL.get('ROI_HEAD'))
     state = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
-    results = {}
-    for name, device, plain in (('card, kernels', 'cuda', False),
-                                ('card, plain', 'cuda', True),
-                                ('cpu, plain', 'cpu', True)):
+    results, sampled = {}, {}
+    runs = (('card, kernels', 'cuda', False), ('card, plain', 'cuda', True))
+    if not two_stage:
+        runs += (('cpu, plain', 'cpu', True),)
+    for name, device, plain in runs:
         t0 = time.perf_counter()
-        twin = Trainer(cfg, device=device, state_dict=state, total_steps=4)
+        twin = Trainer(cfg, device=device, state_dict=state, total_steps=4,
+                       seed=trainer.seed)
         part = {k: v[:2].to(device) for k, v in batch.items()}
         for k in wrappers:
             k.launches = 0
-        if plain:  # in f32 as Trainer.step holds it (utils/precision.py)
-            with plain_versions(), full_f32():
-                tb = twin.model.loss(twin.model(part))[1]
+        if plain or two_stage:  # in f32 as Trainer.step holds it
+            with plain_versions() if plain else contextlib.nullcontext(), \
+                    full_f32():
+                out = twin.model(part, step_draw(trainer.seed, 0, device))
+                tb = twin.model.loss(out)[1]
                 tb['loss'].backward()
+            if two_stage:
+                sampled[name] = out['roi_head_fwd']['sampled_inds']
         else:
             tb = twin.step(part)
         launched = sum(k.launches for k in wrappers)
@@ -1468,10 +1554,16 @@ def compare_train_phase(torch, trainer, cfg_file, batch, wrappers):
             {k: p.grad.cpu() for k, p in twin.model.named_parameters()})
         print(f'f32 step on {name}: {results[name][0]} '
               f'({time.perf_counter() - t0:.1f} s with set-up)', flush=True)
+    if two_stage:
+        got, want = sampled['card, kernels'], sampled['card, plain']
+        check(torch.equal(got, want), 'f32 step: the kernels and the plain '
+              f'versions sample the same RoIs ({int((got != want).sum())} differ)')
+        print(f'f32 step, card with kernels vs plain: the same {got.numel()} '
+              'sampled RoIs', flush=True)
     tb_g, grads_g = results['card, kernels']
     for other, tol_loss, measure, limit in (
             ('card, plain', 1e-6, 'largest entry', 1e-3),
-            ('cpu, plain', 1e-3, 'relative L2', 0.2)):
+            ('cpu, plain', 1e-3, 'relative L2', 0.2))[:len(runs) - 1]:
         tb_o, grads_o = results[other]
         for key, want in tb_o.items():
             check(abs(tb_g[key] - want) <= tol_loss * abs(want),
@@ -1757,13 +1849,15 @@ def main():
     profiled.append((det, clouds[0]))
     del det
 
-    def trained(cfg_file, seed, per_step):
+    def trained(cfg_file, seed, per_step, schedule_steps=None):
         """Trainer at full width, its batches, and the launch counts of
-        the timed steps of the training main path."""
+        the timed steps of the training main path. The one-cycle schedule
+        spans `schedule_steps` (default: the steps taken here)."""
         n_steps = TRAIN_WARMUP + TRAIN_STEPS
-        trainer = Trainer(cfg_file, device='cuda', seed=SEED, total_steps=n_steps)
+        trainer = Trainer(cfg_file, device='cuda', seed=SEED,
+                          total_steps=schedule_steps or n_steps)
         batches, make_ms = train_batches(trainer, n_steps, seed)
-        print(f'make_batch B={TRAIN_BATCH} (host voxelization at the train cap '
+        print(f'make_batch B={train_batch_size(trainer)} (host voxelization at the train cap '
               f'of {trainer.max_voxels} and the copy): p50 {make_ms:.2f} ms',
               flush=True)
         return trainer, batches, train_phase(torch, trainer, batches, per_step)
@@ -1784,6 +1878,20 @@ def main():
                                         split['backward'])
     k3.update(k3_step)
     compare_train_phase(torch, trainer, CFG_SECOND, batches[-1], wrappers)
+    trainer_second, batch_second = trainer, batches[-1]
+    del trainer, batches
+
+    print('== PV-RCNN training ==', flush=True)
+    # the learning rate of a run's first steps (LR / DIV_FACTOR = 1e-3): a
+    # one-cycle squeezed into five steps reaches pv_rcnn.yaml's LR of 0.01
+    # at the third, where the random-weight model's boxes grow without bound
+    trainer, batches, launches_train_pvrcnn = trained(
+        CFG_PVRCNN, SEED + 600, dict(zip(wrappers, (0, 1, 12 + 7, 12, 5))),
+        schedule_steps=1000)
+    pvrcnn_step_split(torch, trainer, batches[-1])
+    compare_train_phase(torch, trainer, CFG_PVRCNN, batches[-1], wrappers)
+    trainer_pvrcnn, batch_pvrcnn = trainer, batches[-1]
+    del trainer, batches
 
     print('== evaluation ==', flush=True)
     launches_eval, annos, dataset = eval_phase(
@@ -1799,15 +1907,18 @@ def main():
     scatter_launch_count(torch, *scatter_case)
     for det, points in profiled:
         profile_request(torch, det, points)
-    for each, batch in ((trainer_pillar, batch_pillar), (trainer, batches[-1])):
+    for each, batch in ((trainer_pillar, batch_pillar),
+                        (trainer_second, batch_second),
+                        (trainer_pvrcnn, batch_pvrcnn)):
         profile_run(torch, f'{each.cfg["MODEL"]["NAME"]} training step',
                     lambda: each.step(batch))
 
-    # launches: the sum over the seven main paths' runs, each counted from 0
+    # launches: the sum over the eight main paths' runs, each counted from 0
     runs = {'PointPillar serving': launches, 'SECONDNet serving': launches_second,
             'PVRCNN serving': launches_pvrcnn,
             'PointPillar training': launches_train,
             'SECONDNet training': launches_train_second,
+            'PVRCNN training': launches_train_pvrcnn,
             'PointPillar eval': launches_eval,
             'SECONDNet eval': launches_eval_second}
     kernels = [k1, k2, k3, k4, k5]

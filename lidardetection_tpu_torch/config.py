@@ -84,6 +84,15 @@ def voxel_processor_cfg(data_cfg):
         'yet: see ROADMAP.md queue 1, "PointRCNN"')
 
 
+def raw_point_capacity(cfg):
+    """DATA_CONFIG.MAX_POINTS when the model reads the raw points (a PFE,
+    PV-RCNN's VSA: ``points`` and ``num_points`` padded to it, as the JAX
+    package's data processor pads them), else None."""
+    if not cfg['MODEL'].get('PFE'):
+        return None
+    return int(cfg['DATA_CONFIG']['MAX_POINTS'])
+
+
 def grid_size_from_range(point_cloud_range, voxel_size):
     """(nx, ny, nz) = round((hi - lo) / voxel_size), computed in float64."""
     pc_range = np.asarray(point_cloud_range, dtype=np.float64)

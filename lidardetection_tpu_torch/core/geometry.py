@@ -1,4 +1,5 @@
-"""Box geometry (lidardetection_tpu/core/geometry.py:30, :80, :101).
+"""Box geometry (lidardetection_tpu/core/geometry.py:30, :80, :95, :101,
+:112, :136).
 
 Rotations are written out elementwise in float32, never as a matrix
 product, so no TF32 or reduced-precision dot can reach them.
@@ -67,3 +68,37 @@ def get_voxel_centers(voxel_coords, downsample_times, voxel_size,
         * downsample_times
     lo = torch.tensor(point_cloud_range[0:3], dtype=torch.float32, device=dev)
     return (coords + 0.5) * size + lo
+
+
+def enlarge_box3d(boxes3d, extra_width=(0, 0, 0)):
+    """Grow (dx, dy, dz) of (..., 7+) boxes by `extra_width`, the centre
+    fixed (geometry.py:95)."""
+    extra = torch.as_tensor(extra_width, dtype=boxes3d.dtype,
+                            device=boxes3d.device)
+    return torch.cat([boxes3d[..., 0:3], boxes3d[..., 3:6] + extra,
+                      boxes3d[..., 6:]], dim=-1)
+
+
+def points_in_boxes_3d(points, boxes):
+    """(..., N, 3) points, (..., M, 7) boxes -> (..., N, M) bool, point n
+    inside box m: |local x| < dx/2, |local y| < dy/2, |dz| <= dz/2 after
+    rotating by -heading (geometry.py:112), elementwise float32."""
+    shift = points[..., :, None, :] - boxes[..., None, :, 0:3]  # (..., N, M, 3)
+    cosa = torch.cos(-boxes[..., 6])[..., None, :]
+    sina = torch.sin(-boxes[..., 6])[..., None, :]
+    local_x = shift[..., 0] * cosa - shift[..., 1] * sina
+    local_y = shift[..., 0] * sina + shift[..., 1] * cosa
+    in_x = local_x.abs() < boxes[..., None, :, 3] / 2
+    in_y = local_y.abs() < boxes[..., None, :, 4] / 2
+    in_z = shift[..., 2].abs() <= boxes[..., None, :, 5] / 2
+    return in_x & in_y & in_z
+
+
+def points_in_boxes_id(points, boxes, box_valid_mask=None):
+    """For each point the index of the first (valid) box holding it, else
+    -1: (..., N) int64 (geometry.py:136)."""
+    inside = points_in_boxes_3d(points, boxes[..., :7])
+    if box_valid_mask is not None:
+        inside = inside & box_valid_mask[..., None, :]
+    first = inside.to(torch.uint8).argmax(dim=-1)
+    return torch.where(inside.any(dim=-1), first, torch.full_like(first, -1))

@@ -10,7 +10,7 @@ import warnings
 
 import numpy as np
 
-from ..config import dataset_info, voxel_processor_cfg
+from ..config import dataset_info, raw_point_capacity, voxel_processor_cfg
 from ..core import np_geometry as npg
 from ..ops.voxelize import build_batch
 
@@ -239,10 +239,11 @@ def build_test_loader(cfg, batch_size, num_scenes, seed=0):
     ``build_dataloader(training=False)`` on its synthetic set): scenes in
     order, every one of them, points not shuffled, voxelized on the host at
     the config's ``test`` cap. A batch is a dict of numpy arrays: the
-    voxel table, the padded ``gt_boxes`` that the recall counters read,
-    ``frame_id`` and ``batch_size``. Warns when a scene fills the cap: the
-    table then keeps the first voxels in scan order, a spatially biased
-    crop."""
+    voxel table, the raw ``points`` / ``num_points`` padded to MAX_POINTS
+    when the model reads them (``config.raw_point_capacity``), the padded
+    ``gt_boxes`` that the recall counters read, ``frame_id`` and
+    ``batch_size``. Warns when a scene fills the cap: the table then keeps
+    the first voxels in scan order, a spatially biased crop."""
     data_cfg = cfg['DATA_CONFIG']
     info = dataset_info(data_cfg)
     vox = voxel_processor_cfg(data_cfg)
@@ -255,7 +256,8 @@ def build_test_loader(cfg, batch_size, num_scenes, seed=0):
     def collate(items):
         batch = build_batch([points for points, _, _ in items],
                             info['point_cloud_range'], info['voxel_size'],
-                            int(vox['MAX_POINTS_PER_VOXEL']), max_voxels)
+                            int(vox['MAX_POINTS_PER_VOXEL']), max_voxels,
+                            max_points=raw_point_capacity(cfg))
         if (batch['num_voxels'] >= max_voxels).any():
             warnings.warn(f'MAX_NUMBER_OF_VOXELS[test]={max_voxels} saturated: '
                           f'eval truncation keeps the first voxels in scan '

@@ -23,6 +23,7 @@ import contextlib
 
 import torch
 
+from ..parallel.train_step import step_draw
 from ..utils.precision import full_f32
 
 
@@ -64,22 +65,24 @@ def recalibrate_bn_stats(model, loader, device_batch_fn, n_batches=16,
     average of its statistics over `n_batches` batches of `loader`
     (training data; restarted when it runs out), each taken by a train-mode
     forward under ``torch.no_grad()`` (in float32 whatever the process
-    flags for a float32 model). ``device_batch_fn`` maps a loader batch to
-    the model's input. Parameters do not change; the model is left in eval
-    mode. Returns the model."""
+    flags for a float32 model), whose random layers draw from
+    ``step_draw(0, i)`` for the i-th batch. ``device_batch_fn`` maps a
+    loader batch to the model's input. Parameters do not change; the model
+    is left in eval mode. Returns the model."""
     model.train()
     it = iter(loader)
     with torch.no_grad(), _accumulating(model) as sums, \
             full_f32(model.compute_dtype == torch.float32):
         saved = {m: [getattr(m, n).clone() for n in m.bn_statistics]
                  for m in _holders(model)}
-        for _ in range(n_batches):
+        device = next(model.parameters()).device
+        for i in range(n_batches):
             try:
                 batch = next(it)
             except StopIteration:
                 it = iter(loader)
                 batch = next(it)
-            model(device_batch_fn(batch))
+            model(device_batch_fn(batch), step_draw(0, i, device))
         for m, values in saved.items():
             if m in sums:
                 s_mean, s_var, calls = sums[m]

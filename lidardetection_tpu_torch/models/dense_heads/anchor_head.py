@@ -12,9 +12,10 @@ product into ``cls_preds`` / ``box_preds`` / ``dir_cls_preds`` in float32,
 assigns targets and emits ``anchor_head_fwd`` for `anchor_head_loss`.
 
 Ahead of a second stage (``predict_boxes_when_training``, PV-RCNN) eval
-does not defer: it emits ``batch_cls_preds`` (B, N_anchors, nc) float32
-logits and ``batch_box_preds`` decoded for every anchor, for the proposal
-layer (anchor_head.py:237-241).
+does not defer, and training emits them beside ``anchor_head_fwd``:
+``batch_cls_preds`` (B, N_anchors, nc) float32 logits and
+``batch_box_preds`` decoded in float32 for every anchor, for the proposal
+layer (anchor_head.py:123-143, :237-241).
 """
 
 import math
@@ -196,18 +197,20 @@ class AnchorHeadSingle(nn.Module):
         cdt = self.dtype or x.dtype
         w, b = self.fused_weights()
         fused = x.to(cdt) @ w.to(cdt) + b.to(cdt)  # (B, H, W, na*tot)
-        if self.training:
-            return {**batch, 'anchor_head_fwd': self._train_forward(batch, fused)}
         code = self.box_coder.full_code_size
         if self.predict_boxes_when_training:
             nc = self.num_class
             rows = fused.reshape(fused.shape[0], -1, nc + code + self.num_dir_bins)
             dir_raw = rows[..., nc + code:] if self.use_dir else None
-            return {**batch,
-                    'batch_cls_preds': rows[..., :nc].float(),
-                    'batch_box_preds': self.decode_boxes(
-                        rows[..., nc:nc + code], dir_raw, self.flat_anchors[None]),
-                    'cls_preds_normalized': False}
+            batch = {**batch,
+                     'batch_cls_preds': rows[..., :nc].float(),
+                     'batch_box_preds': self.decode_boxes(
+                         rows[..., nc:nc + code], dir_raw, self.flat_anchors[None]),
+                     'cls_preds_normalized': False}
+        if self.training:
+            return {**batch, 'anchor_head_fwd': self._train_forward(batch, fused)}
+        if self.predict_boxes_when_training:
+            return batch
         return {
             **batch,
             'batch_fused_preds': fused,

@@ -1,12 +1,62 @@
-"""PV-RCNN's keypoint foreground head, eval (lidardetection_tpu/models/
-dense_heads/point_head.py:113-164): ``FCLayers`` and ``PointHeadSimple``.
-Its training targets and loss are ROADMAP.md queue 1, "PV-RCNN training".
+"""PV-RCNN's keypoint foreground head (lidardetection_tpu/models/
+dense_heads/point_head.py:20-83, :113-171): ``FCLayers``,
+``PointHeadSimple``, its point targets and its focal loss.
+
+Points are (B, N) padded batches; padding points are labelled -1
+(ignored), so they carry no loss weight.
 """
 
 import torch
 from torch import nn
 
+from ...core import losses
+from ...core.geometry import enlarge_box3d, points_in_boxes_id
 from ..layers import POINT_BN, Dense, MaskedBatchNorm
+
+
+def assign_point_targets(point_coords, point_valid, gt_boxes, extra_width,
+                         num_class):
+    """Foreground labels of points, the ``set_ignore_flag`` branch of
+    point_head.py:20-66: a point inside a valid gt box takes its class (1
+    when `num_class` is 1), a point inside only the box grown by
+    `extra_width` is ignored (-1), any other point is background (0), and
+    padding points are ignored.
+
+    Args: point_coords (B, N, 3); point_valid (B, N) bool; gt_boxes (B, M,
+    8), the class last (0 = padding). Returns {'point_cls_labels': (B, N)
+    int64}.
+    """
+    gt_valid = gt_boxes[..., -1] > 0
+    box_id = points_in_boxes_id(point_coords, gt_boxes[..., :7], gt_valid)
+    fg = box_id >= 0
+    ext_id = points_in_boxes_id(
+        point_coords, enlarge_box3d(gt_boxes[..., :7], extra_width), gt_valid)
+    ignore = fg ^ (ext_id >= 0)
+    if num_class > 1:
+        matched = torch.gather(gt_boxes[..., -1], 1, box_id.clamp(min=0))
+        cls_of_point = matched.long()
+    else:
+        cls_of_point = torch.ones_like(box_id)
+    labels = torch.where(fg, cls_of_point, -ignore.long())
+    return {'point_cls_labels': torch.where(point_valid, labels,
+                                            torch.full_like(labels, -1))}
+
+
+def point_cls_loss(point_cls_preds, point_cls_labels, num_class, weight=1.0):
+    """Focal foreground loss over all points (point_head.py:69-83): weight
+    1 on background and foreground points, 0 on ignored ones, over the
+    foreground count. Returns (loss, the count clamped to >= 1)."""
+    labels = point_cls_labels.reshape(-1)
+    preds = point_cls_preds.reshape(-1, num_class)
+    positives = labels > 0
+    cls_weights = ((labels == 0) | positives).float()
+    pos_normalizer = positives.sum().float().clamp(min=1.0)
+    cls_weights = cls_weights / pos_normalizer
+    one_hot = torch.nn.functional.one_hot(
+        labels.clamp(min=0), num_class + 1)[..., 1:].to(preds.dtype)
+    loss = losses.sigmoid_focal_loss(preds[None], one_hot[None],
+                                     cls_weights[None]).sum()
+    return loss * weight, pos_normalizer
 
 
 class FCLayers(nn.Module):
@@ -36,12 +86,14 @@ class FCLayers(nn.Module):
 
 class PointHeadSimple(nn.Module):
     """Per-keypoint class scores: ``point_cls_scores`` = max over classes of
-    the sigmoid of ``FCLayers`` (point_head.py:138-164)."""
+    the sigmoid of ``FCLayers`` (point_head.py:138-171). In training it
+    also emits ``point_head_fwd``: the logits and the point targets, for
+    `loss`."""
 
     def __init__(self, model_cfg, num_class, input_channels, dtype=None,
                  generator=None):
         super().__init__()
-        self.model_cfg = model_cfg
+        self.model_cfg, self.num_class = model_cfg, num_class
         self.fc_layers = FCLayers(input_channels, model_cfg['CLS_FC'],
                                   num_class, dtype=dtype, generator=generator)
 
@@ -49,5 +101,20 @@ class PointHeadSimple(nn.Module):
         key = 'point_features_before_fusion' \
             if self.model_cfg.get('USE_POINT_FEATURES_BEFORE_FUSION', False) \
             else 'point_features'
-        preds = self.fc_layers(batch[key], batch['point_valid'])
-        return {**batch, 'point_cls_scores': torch.sigmoid(preds).amax(-1)}
+        valid = batch['point_valid']
+        preds = self.fc_layers(batch[key], valid)
+        out = {**batch, 'point_cls_scores': torch.sigmoid(preds).amax(-1)}
+        if self.training:
+            targets = assign_point_targets(
+                batch['point_coords'], valid, batch['gt_boxes'],
+                self.model_cfg['TARGET_CONFIG']['GT_EXTRA_WIDTH'],
+                self.num_class)
+            out['point_head_fwd'] = {'point_cls_preds': preds, **targets}
+        return out
+
+    def loss(self, fwd):
+        w = self.model_cfg['LOSS_CONFIG']['LOSS_WEIGHTS']
+        loss, pos = point_cls_loss(fwd['point_cls_preds'],
+                                   fwd['point_cls_labels'], self.num_class,
+                                   w['point_cls_weight'])
+        return loss, {'point_loss_cls': loss, 'point_pos_num': pos}

@@ -4,10 +4,10 @@
 SECOND with one, PV-RCNN with all three point-based slots; ``pfe`` runs
 after the dense head, whose BEV map and sparse stages it reads).
 
-In train mode the forward assigns targets and `Detector3D.loss` sums the
-training loss of the single-stage detectors; training PV-RCNN raises.
-Every other slot or module raises NotImplementedError naming the
-ROADMAP.md item that will port it.
+In train mode the forward assigns each head's targets and
+`Detector3D.loss` sums the dense head's, the point head's and the RoI
+head's losses (JAX :247-268). Every other slot or module raises
+NotImplementedError naming the ROADMAP.md item that will port it.
 """
 
 import torch
@@ -30,11 +30,6 @@ NOT_PORTED = {  # detector or module name -> ROADMAP.md queue 1 item
     'PointHeadBox': 'PointRCNN',
     'AnchorHeadMulti': 'Variants', 'PointHeadSimpleMultiFrame': 'Variants',
 }
-
-
-TWO_STAGE_TRAINING_NOT_PORTED = (
-    'training PV-RCNN (point head targets, RoI target sampling, RCNN '
-    'losses) is not ported yet: see ROADMAP.md queue 1, "PV-RCNN training"')
 
 
 def not_ported(name):
@@ -141,27 +136,28 @@ class Detector3D(nn.Module):
                 1 if cfg.get('CLASS_AGNOSTIC', True) else num_class,
                 dtype=dtype, generator=generator)
 
-    @property
-    def reads_points(self):
-        """Whether a batch must carry the raw points (``points``,
-        ``num_points``): only the point-based slots read them."""
-        return self.pfe is not None
-
-    def forward(self, batch):
-        two_stage = (self.pfe, self.point_head, self.roi_head)
-        if self.training and any(m is not None for m in two_stage):
-            raise NotImplementedError(TWO_STAGE_TRAINING_NOT_PORTED)
+    def forward(self, batch, draw=None):
+        """`draw(name, shape)` gives float32 uniforms in [0, 1): the RoI
+        head's sampling and dropout take theirs from it in training
+        (``parallel/train_step.py::step_draw``)."""
         if 'points' in batch and 'point_valid' not in batch:
             n = batch['points'].shape[1]
             batch = {**batch, 'point_valid': torch.arange(
                 n, device=batch['points'].device) < batch['num_points'][:, None]}
         for module in (self.vfe, self.backbone_3d, self.map_to_bev,
-                       self.backbone_2d, self.dense_head, *two_stage):
+                       self.backbone_2d, self.dense_head, self.pfe,
+                       self.point_head):
             if module is not None:
                 batch = module(batch)
-        return batch
+        return batch if self.roi_head is None else self.roi_head(batch, draw)
 
     def loss(self, batch_out):
         """Total training loss and its terms from a train-mode forward."""
-        rpn_loss, tb = self.dense_head.loss(batch_out['anchor_head_fwd'])
-        return rpn_loss, {**tb, 'loss': rpn_loss}
+        total, tb = self.dense_head.loss(batch_out['anchor_head_fwd'])
+        for head, key in ((self.point_head, 'point_head_fwd'),
+                          (self.roi_head, 'roi_head_fwd')):
+            if head is not None:
+                loss, terms = head.loss(batch_out[key])
+                total = total + loss
+                tb.update(terms)
+        return total, {**tb, 'loss': total}

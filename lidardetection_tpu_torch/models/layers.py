@@ -138,3 +138,11 @@ class Dense(nn.Module):
         dt = self.dtype or torch.float32
         y = x.to(dt) @ self.kernel.to(dt)
         return y if self.bias is None else y + self.bias.to(dt)
+
+
+def dropout(x, u, rate):
+    """flax's ``nn.Dropout`` on given uniforms: entries with ``u < 1 -
+    rate`` kept and scaled by ``1 / (1 - rate)``, the rest 0. `u` holds
+    float32 draws in [0, 1) of x's shape."""
+    keep_prob = 1.0 - rate
+    return torch.where(u < keep_prob, x / keep_prob, torch.zeros_like(x))

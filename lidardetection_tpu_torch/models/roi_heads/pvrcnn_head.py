@@ -1,6 +1,6 @@
-"""PV-RCNN's second stage, eval (lidardetection_tpu/models/roi_heads/
-pvrcnn_head.py:22-236): RoI-grid pooling of the keypoint features, shared
-FC, class and box heads.
+"""PV-RCNN's second stage (lidardetection_tpu/models/roi_heads/
+pvrcnn_head.py:22-244): proposals, RoI-grid pooling of the keypoint
+features, shared FC, class and box heads.
 
 ``RoIGridPool`` keeps the JAX module's design without its MXU form: each
 RoI prefilters the ``CANDIDATE_CAP`` lowest-index keypoints within half
@@ -12,8 +12,13 @@ the JAX package contracts a one-hot selection tensor on the MXU. The
 selection is exact either way. Coordinates are re-centred on the RoI
 centre in float32 before any bf16 cast (:106-117).
 
-In eval dropout is the identity. Training (RoI target sampling, the RCNN
-losses) is ROADMAP.md queue 1, "PV-RCNN training".
+Training takes the proposals of ``NMS_CONFIG.TRAIN``, samples
+ROI_PER_IMAGE of them with their targets (``roi_head_utils``), pools and
+classifies those, with dropout after each shared FC, and emits
+``roi_head_fwd`` for `loss`. Its random numbers come from ``draw(name,
+shape)``, a caller's source of float32 uniforms in [0, 1): the RoI
+sampling's four draws a sample and one per dropout layer
+(``dropout_<n>``). In eval dropout is the identity.
 """
 
 import torch
@@ -24,7 +29,7 @@ from ...core.geometry import rotate_points_along_z
 from ...ops import pointnet2 as p2
 from ..backbones_3d.pointnet2_modules import SharedMLP
 from ..dense_heads.point_head import FCLayers
-from ..layers import POINT_BN, Dense, MaskedBatchNorm
+from ..layers import POINT_BN, Dense, MaskedBatchNorm, dropout
 from . import roi_head_utils
 
 
@@ -72,12 +77,14 @@ class RoIGridPool(nn.Module):
         roi_valid (B, R); grid_pts (B, R, G, 3) -> (B, R, G, sum C_out)."""
         b, rr, gg = grid_pts.shape[:3]
         k = self.k_cand
+        # the candidates and the selection are indices: no gradient
+        sizes = rois[..., 3:6].detach()
         # eps-guarded norm: padded RoIs have zero sizes
-        size2 = p2._sum3(rois[..., 3:6] * rois[..., 3:6])
+        size2 = p2._sum3(sizes * sizes)
         r_cand = 0.5 * torch.sqrt(size2.clamp(min=1e-12)) + float(max(self.radii))
         r_cand = torch.where(roi_valid, r_cand, torch.zeros_like(r_cand))
-        cand_idx, cand_live = p2.roi_candidates(kp_xyz, kp_num, rois[..., 0:3],
-                                                r_cand, k)
+        cand_idx, cand_live = p2.roi_candidates(
+            kp_xyz, kp_num, rois[..., 0:3].detach(), r_cand, k)
         flat = cand_idx.reshape(b, rr * k, 1)
         cand_xyz = p2.group_points(kp_xyz, flat).reshape(b, rr, k, 3)
         ctr = rois[..., None, 0:3]
@@ -89,8 +96,8 @@ class RoIGridPool(nn.Module):
             c0 = proj.shape[-1]
             cand_proj = p2.group_points(proj, flat).reshape(b, rr, k, c0) \
                 + self.xyz_proj[ri](cxyz_in)
-            sel, empty = p2.candidate_rank_select(cand_xyz, cand_live, grid_pts,
-                                                  radius, nsample)
+            sel, empty = p2.candidate_rank_select(
+                cand_xyz, cand_live, grid_pts.detach(), radius, nsample)
             grp = torch.gather(cand_proj, 2, sel.reshape(b, rr, gg * nsample, 1)
                                .expand(-1, -1, -1, c0))
             x = grp.reshape(b, rr, gg, nsample, c0) \
@@ -144,24 +151,57 @@ class PVRCNNHead(nn.Module):
             self.fc_heads[1].dense[-1].kernel.normal_(0.0, 0.001,
                                                       generator=generator)
 
-    def forward(self, batch):
+    def forward(self, batch, draw=None):
+        cfg = self.model_cfg
+        if self.training and draw is None:
+            raise ValueError('a training forward of the RoI head needs '
+                             '`draw`, its source of uniforms')
         out = {**batch, **roi_head_utils.proposal_layer(
-            batch, self.model_cfg['NMS_CONFIG']['TEST'])}
+            batch, cfg['NMS_CONFIG']['TRAIN' if self.training else 'TEST'])}
+        fwd = {}
+        if self.training:
+            b, n = out['rois'].shape[:2]
+            r = int(cfg['TARGET_CONFIG']['ROI_PER_IMAGE'])
+            draws = {name: draw(name, (b, n if size == 'N' else r))
+                     for name, size in roi_head_utils.SAMPLE_DRAWS}
+            fwd = roi_head_utils.assign_roi_targets(draws, out,
+                                                    cfg['TARGET_CONFIG'])
+            out.update(rois=fwd['rois'], roi_labels=fwd['roi_labels'],
+                       roi_valid=torch.ones((b, r), dtype=torch.bool,
+                                            device=out['rois'].device))
         rois, roi_valid = out['rois'], out['roi_valid']
         b, r = rois.shape[:2]
         g = self.grid_size
-        kp_feats = batch['point_features'] * batch['point_cls_scores'][..., None]
+        kp_feats = batch['point_features'] \
+            * batch['point_cls_scores'].detach()[..., None]
         grid_pts = get_global_grid_points_of_roi(rois[..., :7], g)
         pooled = self.roi_grid_pool(batch['point_coords'], kp_feats,
                                     batch['num_keypoints'],
                                     rois[..., :7], roi_valid, grid_pts)
         # (B, R, g^3, C) -> (B*R, C*g^3): the reference's (C, g^3) flattening
         x = pooled.reshape(b * r, g ** 3, -1).transpose(1, 2).reshape(b * r, -1)
-        for dense, bn in zip(self.dense, self.bn):
+        rate = float(cfg.get('DP_RATIO', 0))
+        for i, (dense, bn) in enumerate(zip(self.dense, self.bn)):
             x = torch.relu(bn(dense(x)))
+            if self.training and rate > 0:
+                x = dropout(x, draw(f'dropout_{i}', x.shape), rate)
+        rcnn_cls, rcnn_reg = self.fc_heads[0](x), self.fc_heads[1](x)
+        if self.training:
+            fwd.update(rcnn_cls=rcnn_cls, rcnn_reg=rcnn_reg)
+            out['roi_head_fwd'] = fwd
+            return out
         cls_b, box_b = roi_head_utils.generate_rcnn_boxes(
-            rois, self.fc_heads[0](x), self.fc_heads[1](x), self.box_coder)
+            rois, rcnn_cls, rcnn_reg, self.box_coder)
         out.update({'batch_cls_preds': cls_b, 'batch_box_preds': box_b,
                     'batch_valid_preds': roi_valid,
                     'cls_preds_normalized': False})
         return out
+
+    def loss(self, fwd):
+        """The RCNN class and box losses (pvrcnn_head.py:238-244)."""
+        loss_cfg = self.model_cfg['LOSS_CONFIG']
+        cls_loss, tb_cls = roi_head_utils.roi_cls_loss(fwd, loss_cfg)
+        reg_loss, tb_reg = roi_head_utils.roi_box_loss(fwd, self.box_coder,
+                                                       loss_cfg)
+        total = cls_loss + reg_loss
+        return total, {**tb_cls, **tb_reg, 'rcnn_loss': total}

@@ -2,10 +2,15 @@
 21-123).
 
 `TrainState` holds what a step changes: the model (parameters and BatchNorm
-statistics) and the optimizer (moments and the step count).
+statistics) and the optimizer (moments and the step count), and the seed
+of the run's random layers.
 ``make_train_step(state)`` returns ``step(batch) -> tb``: train-mode
 forward, loss, backward, then one optimizer step (clip, Adam, weight decay).
-The forward runs once, so the BatchNorm statistics move once a step.
+The forward runs once, so the BatchNorm statistics move once a step. The
+random layers (RoI sampling, dropout) draw from ``step_draw(seed, step)``,
+a generator made anew each step from the seed and the step count, as the
+JAX package folds ``state.step`` into its key: a resumed run draws what
+the uninterrupted one drew.
 Parameters are updated in place. A float32 model steps in float32 whatever
 the process's TF32 and matmul-precision flags are (``utils/precision.py``).
 ``make_eval_step`` returns ``step(batch) -> preds``: the eval forward,
@@ -29,9 +34,22 @@ def device_batch(batch, device):
             if k in DEVICE_KEYS or k.startswith('rb_')}
 
 
+def step_draw(seed, step, device):
+    """``draw(name, shape)`` -> float32 uniforms in [0, 1) on `device`, in
+    call order from a ``torch.Generator`` seeded with (seed, step). The
+    names say which layer draws; this source ignores them."""
+    generator = torch.Generator(device=device)
+    generator.manual_seed((int(seed) << 32) + int(step))
+
+    def draw(name, shape):
+        return torch.rand(shape, generator=generator, device=device)
+
+    return draw
+
+
 class TrainState:
-    def __init__(self, model, optimizer):
-        self.model, self.optimizer = model, optimizer
+    def __init__(self, model, optimizer, seed=0):
+        self.model, self.optimizer, self.seed = model, optimizer, seed
 
     @property
     def step(self):
@@ -56,8 +74,10 @@ def make_train_step(state):
         model.train()
         for p in optimizer.params:
             p.grad = None
+        draw = step_draw(state.seed, state.step,
+                         next(model.parameters()).device)
         with full_f32(model.compute_dtype == torch.float32):
-            loss, tb = model.loss(model(batch))
+            loss, tb = model.loss(model(batch, draw))
             loss.backward()
             optimizer.step()
         return {k: v.detach() for k, v in tb.items()}

@@ -28,7 +28,9 @@ import time
 import numpy as np
 import torch
 
-from .config import cfg_from_yaml_file, dataset_info, voxel_processor_cfg
+from .config import (
+    cfg_from_yaml_file, dataset_info, raw_point_capacity, voxel_processor_cfg,
+)
 from .datasets.synthetic import make_scene
 from .models import build_network
 from .models.detectors.post_processing import post_processing
@@ -53,8 +55,7 @@ class Detector:
         self.num_class = len(self.cfg['CLASS_NAMES'])
         self.model = build_network(self.cfg['MODEL'], self.num_class,
                                    self.info, seed=seed)
-        self.max_points = int(data_cfg['MAX_POINTS']) \
-            if self.model.reads_points else None
+        self.max_points = raw_point_capacity(self.cfg)
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         self.model.to(device)

@@ -1,4 +1,4 @@
-"""Training (PointPillar and SECOND): the port's entry point, the
+"""Training (PointPillar, SECOND and PV-RCNN): the port's entry point, the
 counterpart of tools/train.py -> engine/trainer.py -> parallel/train_step.py.
 
 ``Trainer(cfg_file, device="cuda", seed=0, state_dict=None, total_steps=...)``
@@ -12,13 +12,17 @@ checkpoints and resume.
 
 The CPU is used only when asked (``device="cpu"``); the default device
 raises when CUDA is absent. Random numbers come from the ``torch.Generator``
-that initializes the parameters and an ``np.random.RandomState`` that
-shuffles each cloud's points, both made from ``seed``.
+that initializes the parameters, an ``np.random.RandomState`` that
+shuffles each cloud's points, and a generator made each step from
+(``seed``, step) for the random layers (PV-RCNN's RoI sampling and
+dropout, ``parallel/train_step.py::step_draw``), all from ``seed``.
 
 CLI, training on synthetic scenes made from ``--seed``:
 
     python -m lidardetection_tpu_torch.train \\
         --cfg_file tools/cfgs/kitti_models/second.yaml --num_steps 4 --batch_size 4
+    python -m lidardetection_tpu_torch.train \
+        --cfg_file tools/cfgs/kitti_models/pv_rcnn.yaml --num_steps 4
 """
 
 import argparse
@@ -28,7 +32,9 @@ import time
 import numpy as np
 import torch
 
-from .config import cfg_from_yaml_file, dataset_info, voxel_processor_cfg
+from .config import (
+    cfg_from_yaml_file, dataset_info, raw_point_capacity, voxel_processor_cfg,
+)
 from .datasets.synthetic import SyntheticDataset, SyntheticLoader
 from .engine.trainer import train_model
 from .models import build_network
@@ -56,7 +62,9 @@ class Trainer:
             p['NAME'] == 'shuffle_points' and p['SHUFFLE_ENABLED']['train']
             for p in data_cfg['DATA_PROCESSOR'])
         self.max_gt_boxes = int(data_cfg.get('MAX_GT_BOXES', 64))
+        self.max_points = raw_point_capacity(self.cfg)
         self.class_names = tuple(self.cfg['CLASS_NAMES'])
+        self.seed = seed
         self.rng = np.random.RandomState(seed)
         self.model = build_network(self.cfg['MODEL'], len(self.class_names),
                                    self.info, seed=seed)
@@ -71,11 +79,12 @@ class Trainer:
         optimizer, self.lr_fn = build_optimizer(
             list(self.model.named_parameters()), self.cfg['OPTIMIZATION'],
             iters_per_epoch, epochs)
-        self.state = TrainState(self.model, optimizer)
+        self.state = TrainState(self.model, optimizer, self.seed)
         self._step = make_train_step(self.state)
 
     def make_batch(self, scenes):
-        """Voxelize ``(points, gt_boxes (G, 8))`` scenes on the host; the
+        """Voxelize ``(points, gt_boxes (G, 8))`` scenes on the host, with
+        the raw points padded to MAX_POINTS when the model reads them; the
         batch tensors on the device."""
         clouds = []
         for points, _ in scenes:
@@ -84,7 +93,8 @@ class Trainer:
             clouds.append(points)
         arrays = build_batch(clouds, self.info['point_cloud_range'],
                              self.info['voxel_size'],
-                             self.max_points_per_voxel, self.max_voxels)
+                             self.max_points_per_voxel, self.max_voxels,
+                             max_points=self.max_points)
         arrays['gt_boxes'] = np.stack([gt for _, gt in scenes])
         return device_batch(arrays, self.device)
 

@@ -10,10 +10,14 @@ points at the decode, the assigner, the losses or NMS.
     python -m lidardetection_tpu_torch.train_to_ap --epochs 150
     python -m lidardetection_tpu_torch.train_to_ap \\
         --cfg_file tools/cfgs/kitti_models/second.yaml --epochs 80
+    python -m lidardetection_tpu_torch.train_to_ap \\
+        --cfg_file tools/cfgs/kitti_models/pv_rcnn.yaml --lr 0.003 --epochs 80
 
 Runs on the card unless given ``--device cpu``. Run again on the same
 ``--output_dir``, it resumes from the newest checkpoint. Prints the
-moderate 3D and BEV APs, then one JSON gate line; exits 1 when Car 3D
+moderate 3D and BEV APs, then one JSON gate line (with the recall
+counters at IoU 0.7: ``recall_rcnn_0.7`` of the kept boxes and, for a
+two-stage detector, ``recall_roi_0.7`` of its RoIs); exits 1 when Car 3D
 moderate R40 is under ``--min_ap``.
 """
 
@@ -182,6 +186,8 @@ def main(argv=None):
         'sec_per_example': result['sec_per_example'],
         'num_candidates_p50': float(np.median(live)),
         'num_candidates_max': int(max(live)),
+        **{f'recall_{k[len("recall/"):]}': v for k, v in sorted(result.items())
+           if k.startswith('recall/') and k.endswith('_0.7')},
     }
     print(json.dumps(gate), flush=True)
     return 0 if gate['pass'] else 1

@@ -110,12 +110,18 @@ def test_unported_paths_raise_with_the_roadmap_item(name):
         AnchorHeadSingle,
     )
 
-    if name == 'PVRCNN':  # serving is ported, training is not
+    if name == 'PVRCNN':  # serving and training are ported, tracking not
         from lidardetection_tpu_torch.config import dataset_info
+        from lidardetection_tpu_torch.models.roi_heads import roi_head_utils
         cfg = cfg_from_yaml_file('tools/cfgs/kitti_models/pv_rcnn.yaml')
         model = build_network(cfg.MODEL, 3, dataset_info(cfg.DATA_CONFIG))
-        with pytest.raises(NotImplementedError, match='PV-RCNN training'):
-            model.train()({'voxels': torch.zeros(1, 8, 5, 4)})
+        with pytest.raises(ValueError, match='draw'):  # no source of draws
+            model.roi_head.train()({'batch_box_preds': torch.zeros(1, 4, 7),
+                                    'batch_cls_preds': torch.zeros(1, 4, 3)})
+        tracking = {**cfg.MODEL.ROI_HEAD.TARGET_CONFIG,
+                    'REG_TRACKING_INFO': True}
+        with pytest.raises(NotImplementedError, match='Variants'):
+            roi_head_utils.assign_roi_targets({}, {}, tracking)
         return
     cfg = cfg_from_yaml_file('tools/cfgs/kitti_models/pointpillar.yaml')
     head_cfg = cfg.MODEL.DENSE_HEAD

@@ -23,7 +23,7 @@ from test_torch_train_step import _reduce
 
 GATE_KEYS = {'metric', 'value', 'unit', 'pass', 'scenes', 'epochs', 'device',
              'wall_s', 's_per_epoch', 'sec_per_example', 'num_candidates_p50',
-             'num_candidates_max'}
+             'num_candidates_max', 'recall_rcnn_0.7'}
 
 
 @pytest.mark.parametrize('name,voxel_size,cap', [
