@@ -19,7 +19,9 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      tools/cfgs/kitti_models/pointpillar.yaml (bf16 compute, random
      weights from a seed, class-logit bias 0 so NMS sees live candidates),
      with every kernel's launch count set to 0 just before and read after;
-     the forward split by module;
+     the rows each request's blocked NMS walk read, the p50s beside the
+     earlier ones (the full-matrix NMS, the numpy voxelizer); the forward
+     split by module;
   4. the same weights and clouds in f32 on the card (kernels) and on the
      CPU (plain versions): head outputs and kept detections must agree
      (the TF32 flags are left as PyTorch sets them: the port holds f32
@@ -33,17 +35,26 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      offset) pairs and 16-row fragments K3 skips and its rate on hits;
   6. and 7. phases 3 and 4 for the full tools/cfgs/kitti_models/second.yaml;
   8. train through ``train.Trainer`` at full width (the yaml's train cap of
-     16000 voxels, B = 4, bf16, adam_onecycle), PointPillar then SECOND: 2
-     warm-up and 3 timed steps each, launch counts set to 0 before every
-     step and checked after it (SECOND: 12 K4, 12 + 7 K3, 1 K2; PointPillar:
-     1 K2), finite loss and gradients, BatchNorm statistics moved, peak
-     memory; one SECOND step split by forward / backward / optimizer;
+     16000 voxels, B = 4, bf16, adam_onecycle), PointPillar then SECOND
+     (on the host plan's rulebooks, ops/sparse_plan.py): 2 warm-up and 3
+     timed steps each, launch counts set to 0 before every step and
+     checked after it (SECOND: 12 K4, 12 + 11 K3 (7 submanifold and 4
+     strided df), 1 K2; PointPillar: 1 K2), finite loss and gradients,
+     BatchNorm statistics moved, peak memory, the step p50 beside the
+     earlier one (device-built rulebooks, the full-matrix NMS);
+     one SECOND step split by forward / backward / optimizer; two
+     identical SECOND steps from one state compared leaf by leaf (the ops
+     that deterministic mode names where they differ); per scan at the
+     train cap the voxelizer and the plan's rulebooks, host library
+     against numpy plain version (equal) and their times;
   9. K4 against its plain version on the (f, rulebook, g) of the 12 sparse
      layers of one SECOND training step (bf16 and f32, B = 1 and B = 4, one
      rulebook with shuffled rows, the same bits on a second run), its times,
      row splits, workspace bytes and rate on hits per layer; K3 at the
      step's shape (its 12 forward and 7 df launches) against its plain
-     version, and its times;
+     version, and its times; each strided layer's df (K3 over its
+     transposed rulebook) against the plain scatter-add within 1e-4 of
+     the largest value;
      the K3 input gradient of a 64 -> 64 submanifold layer against autograd
      of the plain version; K2's backward against autograd of its plain
      version;
@@ -55,14 +66,17 @@ Phases, each of which raises on failure (non-zero exit, no result line):
  11. train PV-RCNN through ``train.Trainer`` at full width (the yaml's
      train cap of 16000 voxels, B = 2, bf16, adam_onecycle, 2048
      keypoints, proposal NMS 9000 -> 512, 128 sampled RoIs, dropout 0.3):
-     2 warm-up and 3 timed steps, launch counts set to 0 before every step
-     and checked after it: 12 K3 forward + 7 K3 submanifold df, 12 K4, 1
+     2 warm-up and 3 timed steps on the host plan's rulebooks, launch
+     counts set to 0 before every step and checked after it: 12 K3
+     forward + 7 submanifold and 4 strided K3 df, 12 K4, 1
      K2 (HeightCompression's scatter; its backward is a gather) and 5 K5
      (the VSA's raw-point and x_conv1-4 ball queries; no backward) a step,
      no K1; finite loss and gradients, BatchNorm statistics moved, peak
      memory; one step split by forward (the proposal layer, its NMS and
      the anchor, point and RoI target assigners apart), backward and
-     optimizer; one f32 step with the kernels against the plain versions
+     optimizer, the rows the NMS walk read per sample and its kept lists
+     against the full-matrix oracle on the card (equal lists); one f32
+     step with the kernels against the plain versions
      on the card, both drawing from the same per-step generator: the same
      sampled RoIs, then every gradient leaf within 1e-3;
  12. serve requests through ``serve.Detector`` on the full
@@ -84,8 +98,11 @@ Phases, each of which raises on failure (non-zero exit, no result line):
      PointPillar then SECOND at the yaml's full width and test cap, random
      weights from a seed (class-logit bias 0), 4 synthetic scenes at B = 2,
      launch counts set to 0 before every batch and checked after it
-     (PointPillar: 1 K1, 1 K2; SECOND: 12 K3, 1 K2); sec_per_example, the
-     recall counters and the live NMS candidates;
+     (PointPillar: 1 K1, 1 K2; SECOND on the eval plan's host rulebooks
+     cut to the batch's occupancy: 12 K3, 1 K2); sec_per_example, the
+     recall counters and the live NMS candidates; SECOND's detections on
+     the bucketed host tables equal to those of the unbucketed
+     device-built path on the same scenes;
  16. the KITTI protocol with the native host library built by the
      machine's g++: native against numpy plain version on both eval runs'
      annos and on perfect predictions over 48 scenes (equal results; the
@@ -164,6 +181,53 @@ def cuda_ms(fn, torch, iters=30, warmup=5, queued=True):
 def bound_ms(n_bytes, n_flop, flop_per_s=F32_FLOP_PER_S):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flop / flop_per_s
     return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else 'operations'
+
+
+@contextlib.contextmanager
+def recorded(owner, attr, calls):
+    """owner.attr wrapped for the block: each call's (args, kwargs, result)
+    appended to `calls`."""
+    fn = getattr(owner, attr)
+
+    def run(*args, **kwargs):
+        result = fn(*args, **kwargs)
+        calls.append((args, kwargs, result))
+        return result
+
+    setattr(owner, attr, run)
+    try:
+        yield calls
+    finally:
+        setattr(owner, attr, fn)
+
+
+def full_matrix_nms(torch, boxes, scores, valid, thresh, pre_maxsize,
+                    post_maxsize):
+    """The oracle of the NMS walk: per sample, of the `pre_maxsize` best
+    scores, the whole live x live IoU matrix (``boxes_iou_bev``, on the
+    card), then the greedy sweep on the host, rows in score order (ties to
+    the lower index). Returns a list of kept index lists into N."""
+    from lidardetection_tpu_torch.core.iou3d import boxes_iou_bev, top_k
+
+    if valid is None:
+        valid = torch.ones_like(scores, dtype=torch.bool)
+    out = []
+    for b, s, v in zip(boxes, scores, valid):
+        _, order = top_k(torch.where(v, s, -float('inf'))[None], pre_maxsize)
+        order = order[0][v[order[0]]]
+        bx = b[order, :7].contiguous()
+        sup = (boxes_iou_bev(bx, bx) > thresh).cpu().numpy()
+        removed = np.zeros(len(order), bool)
+        keep = []
+        for i in range(len(order)):
+            if removed[i]:
+                continue
+            keep.append(i)
+            if len(keep) == post_maxsize:
+                break
+            removed |= sup[i]
+        out.append(order[keep].tolist())
+    return out
 
 
 def make_clouds(det, n, seed):
@@ -588,13 +652,17 @@ def stage_counts(out):
     return counts
 
 
-def serve_phase(torch, det, clouds, per_request):
+def serve_phase(torch, det, clouds, per_request, earlier=None):
     """The main path: one request per cloud; every launch count set to 0
     just before each request and read just after it. `per_request` maps
-    each kernel's wrapper to the launches one request must make. Returns
-    the launches of the run."""
+    each kernel's wrapper to the launches one request must make; the p50s
+    are printed beside `earlier` (the same shapes before the NMS walk and
+    the native voxelizer). Each request's NMS
+    reports the rows its walk read. Returns the launches of the run."""
+    from lidardetection_tpu_torch.models.detectors import post_processing
+
     total = {k.__name__: 0 for k in per_request}
-    latency, forward, stages = [], [], []
+    latency, forward, stages, rows_read = [], [], [], []
     for i, points in enumerate(clouds):
         for k in per_request:
             k.launches = 0
@@ -608,7 +676,10 @@ def serve_phase(torch, det, clouds, per_request):
         end.record()
         end.synchronize()
         t2 = time.perf_counter()
-        preds = det.postprocess(out)
+        nms = []
+        with recorded(post_processing, 'nms_bev_batched', nms):
+            preds = det.postprocess(out)
+        rows_read.append(int(nms[-1][2][3][0]))
         n = int(preds['num_preds'][0])
         boxes = preds['pred_boxes'][0, :n].cpu().numpy()
         t3 = time.perf_counter()
@@ -620,7 +691,8 @@ def serve_phase(torch, det, clouds, per_request):
             if 'multi_scale_3d_features' in out else ''
         print(f'request {i}: {len(points)} points, '
               f'{int(batch["num_voxels"][0])} voxels{tables}, {live} live NMS '
-              f'candidates, num_preds {n}, latency {latency[-1]:.2f} ms '
+              f'candidates, NMS rows read {rows_read[-1]}, num_preds {n}, '
+              f'latency {latency[-1]:.2f} ms '
               f'(host clock: make_batch {stages[-1][0]:.2f}, forward '
               f'{stages[-1][1]:.2f}, postprocess {stages[-1][2]:.2f}), '
               f'forward device {forward[-1]:.2f} ms', flush=True)
@@ -631,12 +703,19 @@ def serve_phase(torch, det, clouds, per_request):
             check(k.launches == each, f'request {i}: {k.__name__} launched '
                   f'{k.launches} times, expected {each}')
             total[k.__name__] += k.launches
-    print('p50 host clock, ms: make_batch {:.2f}, forward {:.2f}, '
-          'postprocess {:.2f}'.format(*np.median(stages, axis=0)), flush=True)
+    p50 = dict(zip(('make_batch', 'forward', 'postprocess'),
+                   np.median(stages, axis=0).tolist()),
+               latency=float(np.median(latency)))
+    print('p50 host clock, ms: ' + ', '.join(
+        f'{k} {v:.2f}' + (f' (before: {earlier[k]})' if k in (earlier or {})
+                          else '') for k, v in p50.items())
+          + f'; NMS rows read {rows_read}', flush=True)
     print(json.dumps({'config': det.cfg['MODEL']['NAME'],
                       'requests': len(clouds),
-                      'p50_latency_ms': float(np.median(latency)),
-                      'p50_forward_ms': float(np.median(forward))}), flush=True)
+                      'p50_latency_ms': p50['latency'],
+                      'p50_forward_ms': float(np.median(forward)),
+                      'p50_postprocess_ms': p50['postprocess'],
+                      'nms_rows_read': rows_read}), flush=True)
     return total
 
 
@@ -824,11 +903,13 @@ def finite_gradients(torch, model):
                for p in model.parameters())
 
 
-def train_phase(torch, trainer, batches, per_step):
+def train_phase(torch, trainer, batches, per_step, earlier=None):
     """The training main path: TRAIN_WARMUP + TRAIN_STEPS optimizer steps
     through ``Trainer.step``; every launch count set to 0 just before each
     step and read just after. `per_step` maps each kernel's wrapper to the
-    launches one step must make. Returns the launches of the timed steps."""
+    launches one step must make; the step p50 is printed beside `earlier`
+    (ms, before the host plan and the NMS walk). Returns the launches of
+    the timed steps."""
     name = trainer.cfg['MODEL']['NAME']
     model = trainer.model
     params = {k for k, _ in model.named_parameters()}
@@ -878,6 +959,10 @@ def train_phase(torch, trainer, batches, per_step):
             for key, n in counts.items():
                 total[key] += n
     check(trainer.state.step == len(batches), 'the optimizer counted the steps')
+    if earlier is not None:
+        print(f'{name} step p50 {float(np.median(host_ms)):.2f} ms (host '
+              f'clock), {float(np.median(device_ms)):.2f} ms (CUDA events); '
+              f'before: {earlier} ms', flush=True)
     print(json.dumps({
         'config': name, 'train_steps': len(host_ms),
         'batch_size': train_batch_size(trainer),
@@ -952,24 +1037,46 @@ def step_split(torch, trainer, batch, repeats=3, functions=()):
 def pvrcnn_step_split(torch, trainer, batch):
     """The PV-RCNN step split, with the proposal layer (its NMS over 9000
     candidates apart) and the three target assigners (anchors, points,
-    RoIs) timed inside the forward."""
+    RoIs) timed inside the forward; the rows the NMS walk read per sample,
+    and its kept lists against the full-matrix oracle on the same
+    proposals."""
     from lidardetection_tpu_torch.models.dense_heads import (
         point_head, target_assigner,
     )
     from lidardetection_tpu_torch.models.roi_heads import roi_head_utils
 
-    split = step_split(torch, trainer, batch, functions=(
-        (target_assigner, 'assign_targets', 'anchor targets'),
-        (point_head, 'assign_point_targets', 'point targets'),
-        (roi_head_utils, 'proposal_layer', 'proposal layer'),
-        (roi_head_utils, 'nms_bev_batched', 'proposal NMS'),
-        (roi_head_utils, 'assign_roi_targets', 'RoI targets')))
+    calls = []
+    with recorded(roi_head_utils, 'nms_bev_batched', calls):
+        split = step_split(torch, trainer, batch, functions=(
+            (target_assigner, 'assign_targets', 'anchor targets'),
+            (point_head, 'assign_point_targets', 'point targets'),
+            (roi_head_utils, 'proposal_layer', 'proposal layer'),
+            (roi_head_utils, 'nms_bev_batched', 'proposal NMS'),
+            (roi_head_utils, 'assign_roi_targets', 'RoI targets')))
     step = split['forward'] + split['backward'] + split['optimizer']
-    print(f'PV-RCNN step: {step:.2f} ms split; the proposal layer '
-          f'{split["proposal layer"]:.2f} ms ({split["proposal layer"] / step:.3f} '
-          f'of the step; its NMS {split["proposal NMS"]:.2f}), the targets '
+    print(f'PV-RCNN step: {step:.2f} ms split (before: 941.59); the proposal '
+          f'layer {split["proposal layer"]:.2f} ms '
+          f'({split["proposal layer"] / step:.3f} of the step; its NMS '
+          f'{split["proposal NMS"]:.2f}; the full matrix before: 716.65), '
+          'the targets '
           f'{split["anchor targets"] + split["point targets"] + split["RoI targets"]:.2f} '
           'ms', flush=True)
+    (boxes, scores), kw, (idx, _, num, rows_read) = calls[0]
+    live = kw['valid_mask'].sum(1).tolist() if kw.get('valid_mask') \
+        is not None else [scores.shape[1]] * scores.shape[0]
+    print(f'proposal NMS walk: rows read per sample {rows_read.tolist()} of '
+          f'{min(kw["pre_maxsize"], scores.shape[1])} candidates ({live} live '
+          f'of the anchors), kept {num.tolist()} (post_maxsize '
+          f'{kw["post_maxsize"]}, thresh {kw["thresh"]})', flush=True)
+    t0 = time.perf_counter()
+    want = full_matrix_nms(torch, boxes, scores, kw.get('valid_mask'),
+                           kw['thresh'], kw['pre_maxsize'], kw['post_maxsize'])
+    oracle_ms = (time.perf_counter() - t0) * 1e3
+    got = [idx[b, :int(num[b])].tolist() for b in range(len(want))]
+    print(f'proposal NMS walk vs the full-matrix oracle ({oracle_ms:.2f} ms) '
+          f'on one step\'s proposals: kept lists equal {got == want} '
+          f'({[len(w) for w in want]} kept)', flush=True)
+    check(got == want, 'the NMS walk keeps what the full-matrix sweep keeps')
     return split
 
 
@@ -978,7 +1085,8 @@ def record_weight_gradients(trainer, batch):
     layers' forward inputs (call order), the (f, rulebook, g) that each
     layer's backward hands to K4 (call order reversed to layer order) and
     the (f, rulebook, W, valid) of every K3 call of the step (12 forward,
-    then 7 submanifold df in backward order)."""
+    then 11 df in backward order: 7 submanifold, 4 strided over the
+    training plan's transposed rulebooks)."""
     from lidardetection_tpu_torch.ops import sparse
 
     calls, convs = [], []
@@ -1016,14 +1124,33 @@ def weight_gradient_phase(torch, trainer, batch, backward_ms):
         scatter_rows, scatter_rows_plain,
     )
     from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
-        DW_WORKSPACE_BYTES, dw_split_plan, rulebook_conv_dw,
+        DW_WORKSPACE_BYTES, dw_split_plan, rulebook_conv, rulebook_conv_dw,
         rulebook_conv_dw_plain, rulebook_conv_plain,
     )
 
     layers, calls, convs = record_weight_gradients(trainer, batch)
-    check(len(layers) == len(calls) == 12 and len(convs) == 12 + 7,
-          f'12 sparse layers, 12 weight gradients and 19 K3 calls '
+    check(len(layers) == len(calls) == 12 and len(convs) == 12 + 11,
+          f'12 sparse layers, 12 weight gradients and 23 K3 calls '
           f'({len(layers)}, {len(calls)}, {len(convs)})')
+
+    # the strided layers' input gradient: K3 over the training plan's
+    # transposed rulebook against the scatter-add the device-built path
+    # takes (the same f32 products summed in another order)
+    for name in ('down2', 'down3', 'down4', 'out'):
+        rb_bwd = batch[f'rb_{name}_bwd']
+        (g, _, wb, in_valid), = [c for c in convs
+                                 if c[1].data_ptr() == rb_bwd.data_ptr()]
+        got = rulebook_conv(g, rb_bwd, wb, in_valid)
+        want = sparse._conv_input_grad_plain(
+            g, batch[f'rb_{name}'], wb.transpose(1, 2), rb_bwd.shape[1]) \
+            * in_valid[..., None]
+        torch.cuda.synchronize()
+        e, top = float((got - want).abs().max()), float(want.abs().max())
+        print(f'strided df {name} ({str(g.dtype)[6:]}, V {rb_bwd.shape[1]} <- '
+              f'{g.shape[1]}, K={wb.shape[0]}): max|K3 over rb_{name}_bwd - '
+              f'scatter-add| = {e:.3g} (max|want| {top:.3g}, tolerance 1e-4 * '
+              f'max)', flush=True)
+        check(top > 0 and e <= 1e-4 * top, f'strided df {name} on K3')
 
     # f32 sums of up to ~1e6 exact products in another order (the kernel
     # adds rows in ascending order chunk by chunk, the plain version sums
@@ -1168,17 +1295,17 @@ def weight_gradient_phase(torch, trainer, batch, backward_ms):
           f'{max(r["workspace_bytes"] for r in shapes)} bytes', flush=True)
 
     # K3 at a step's shape (B = 4, the train cap), held against its plain
-    # version: the 12 forward and the 7 submanifold df launches of one step,
-    # the model's dtype
+    # version: the 12 forward and the 11 df launches (7 submanifold, 4
+    # strided) of one step, in backward order, the model's dtype
     names = [f'forward {n}' for n in range(1, 13)] + \
-        [f'df {n}' for n in range(1, 8)]
+        [f'df {n}' for n in range(1, 12)]
     step_rows = [conv_timing(torch, name, f'B={f.shape[0]}', f, rb, w, valid)
                  for name, (f, rb, w, valid) in zip(names, convs)]
     k3_step = {key: sum(r[key] for r in step_rows)
                for key in ('ms', 'plain_ms', 'bound_ms')}
-    print(f'rulebook_conv, the 19 launches of a SECOND step (B={TRAIN_BATCH}): '
+    print(f'rulebook_conv, the 23 launches of a SECOND step (B={TRAIN_BATCH}): '
           f'device {k3_step["ms"]:.4f} ms (12 forward '
-          f'{sum(r["ms"] for r in step_rows[:12]):.4f}, 7 df '
+          f'{sum(r["ms"] for r in step_rows[:12]):.4f}, 11 df '
           f'{sum(r["ms"] for r in step_rows[12:]):.4f}), plain '
           f'{k3_step["plain_ms"]:.4f} ms, bound {k3_step["bound_ms"]:.4f} ms',
           flush=True)
@@ -1582,6 +1709,138 @@ def compare_train_phase(torch, trainer, cfg_file, batch, wrappers):
         check(rel_l2 <= 0.05, f'gradient, card, kernels vs {other}: L2 {rel_l2}')
 
 
+def reproducibility_phase(torch, trainer, batch):
+    """Two identical SECOND training steps from the same state on the same
+    batch: every parameter, BatchNorm statistic and Adam moment after the
+    step compared bit for bit. Where a leaf differs, the step is run again
+    under ``torch.use_deterministic_algorithms(True, warn_only=True)`` and
+    the ops it warns about are printed. Reports; the state is put back."""
+    import copy
+    import warnings
+
+    saved = copy.deepcopy(trainer.state.state_dict())
+
+    def leaves():
+        state = trainer.state.state_dict()
+        out = {f'model/{k}': v.clone() for k, v in state['model'].items()}
+        for kind in ('mu', 'nu'):
+            out.update({f'{kind}/{k}': v.clone()
+                        for k, v in state['optimizer'][kind].items()})
+        return out
+
+    runs = []
+    for _ in range(2):
+        trainer.state.load_state_dict(copy.deepcopy(saved))
+        trainer.step(batch)
+        runs.append(leaves())
+    differ = [k for k in runs[0] if not torch.equal(runs[0][k], runs[1][k])]
+    print(f'two identical SECOND steps: {len(runs[0]) - len(differ)} of '
+          f'{len(runs[0])} leaves bit-equal'
+          + (f'; differ: {differ[:12]}' if differ else ''), flush=True)
+    if differ:
+        trainer.state.load_state_dict(copy.deepcopy(saved))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                trainer.step(batch)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        ops = sorted({str(w.message).split('\n')[0][:160] for w in caught})
+        print(f'deterministic mode names {len(ops)} op(s): {ops}', flush=True)
+    trainer.state.load_state_dict(saved)
+    return differ
+
+
+def host_plan_phase(trainer):
+    """The host side at second.yaml's train cap, per scan of a training
+    batch: the voxelizer and the training plan's rulebook build, the host
+    library against the numpy plain version (equal arrays), median times."""
+    from lidardetection_tpu_torch import native
+    from lidardetection_tpu_torch.datasets.synthetic import SyntheticDataset
+    from lidardetection_tpu_torch.ops.sparse_plan import build_host_rulebooks
+    from lidardetection_tpu_torch.ops.voxelize import (
+        mask_points_by_range, voxelize_np,
+    )
+
+    info, plan = trainer.info, trainer.plan
+    dataset = SyntheticDataset(trainer.class_names, info['point_cloud_range'],
+                               num_scenes=TRAIN_BATCH, seed=SEED + 700)
+    times = {k: [] for k in ('voxelize native', 'voxelize numpy',
+                             'plan native', 'plan numpy')}
+    args = (info['point_cloud_range'], info['voxel_size'],
+            trainer.max_points_per_voxel, trainer.max_voxels)
+    for i in range(TRAIN_BATCH):
+        points, _ = dataset[i]
+        points = points[mask_points_by_range(points, np.asarray(
+            info['point_cloud_range'], np.float32))]
+        out = {}
+        for plain, what in ((False, 'native'), (True, 'numpy')):
+            with native.plain_host(plain):
+                t0 = time.perf_counter()
+                table = voxelize_np(points, *args)
+                t1 = time.perf_counter()
+                rb = build_host_rulebooks(plan, table[1], table[3])
+                t2 = time.perf_counter()
+            times[f'voxelize {what}'].append((t1 - t0) * 1e3)
+            times[f'plan {what}'].append((t2 - t1) * 1e3)
+            out[what] = (table, rb)
+        (t_n, rb_n), (t_p, rb_p) = out['native'], out['numpy']
+        check(t_n[3] == t_p[3] and all(np.array_equal(a, b)
+                                       for a, b in zip(t_n[:3], t_p[:3])),
+              f'scan {i}: native and numpy voxel tables equal')
+        check(list(rb_n) == list(rb_p) == plan.batch_keys() and all(
+            rb_n[k].dtype == rb_p[k].dtype and np.array_equal(rb_n[k], rb_p[k])
+            for k in rb_n), f'scan {i}: native and numpy rulebooks equal')
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f'host side per scan at the train cap of {trainer.max_voxels} '
+          f'({TRAIN_BATCH} scans, {len(plan.ops)} plan ops, '
+          f'{len(plan.batch_keys())} tables; native and numpy bit-equal), '
+          'median ms: ' + ', '.join(f'{k} {v:.2f}' for k, v in med.items()),
+          flush=True)
+
+
+def bucketed_eval_phase(torch, cfg_file):
+    """SECOND's eval on the bucketed host tables (the eval phase's path)
+    against the unbucketed device-built path on the same scenes, weights
+    and eval step: the same detections, equal tensors."""
+    from lidardetection_tpu_torch.config import cfg_from_yaml_file, dataset_info
+    from lidardetection_tpu_torch.datasets.synthetic import build_test_loader
+    from lidardetection_tpu_torch.models import build_network
+    from lidardetection_tpu_torch.parallel.train_step import (
+        device_batch, make_eval_step,
+    )
+
+    cfg = cfg_from_yaml_file(cfg_file)
+    model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES),
+                          dataset_info(cfg.DATA_CONFIG), seed=SEED).to('cuda')
+    with torch.no_grad():
+        model.dense_head.conv_cls_bias.zero_()
+    step = make_eval_step(model, cfg.MODEL.POST_PROCESSING,
+                          len(cfg.CLASS_NAMES))
+    _, bucketed = build_test_loader(cfg, EVAL_BATCH, EVAL_SCENES,
+                                    seed=SEED + 500)
+    cfg.DATA_CONFIG.VOXEL_BUCKETING = False
+    _, whole = build_test_loader(cfg, EVAL_BATCH, EVAL_SCENES, seed=SEED + 500)
+    keys = ('pred_boxes', 'pred_scores', 'pred_labels', 'num_preds')
+    stages = ('down2', 'down3', 'down4', 'out')
+    for i, (host, dev) in enumerate(zip(bucketed, whole)):
+        dev = {k: v for k, v in dev.items() if not k.startswith('rb_')}
+        got, want = step(device_batch(host, 'cuda')), \
+            step(device_batch(dev, 'cuda'))
+        same = all(torch.equal(got[k], want[k]) for k in keys)
+        print(f'eval batch {i}: bucketed host tables (voxels '
+              f'{host["voxels"].shape[1]}, stage rows '
+              f'{[host[f"rb_{n}_coords"].shape[1] for n in stages]}) '
+              f'vs the unbucketed device-built path (voxels '
+              f'{dev["voxels"].shape[1]}): detections equal {same} '
+              f'({got["num_preds"].tolist()} kept)', flush=True)
+        check(same, f'eval batch {i}: bucketed host-plan detections equal '
+              'the device-built ones')
+        check(host['voxels'].shape[1] < dev['voxels'].shape[1],
+              f'eval batch {i}: bucketing cut the table')
+
+
 class CountedLoader:
     """An eval loader whose batches are each one run of the main path: every
     launch count set to 0 just before a batch is handed to the evaluator and
@@ -1808,7 +2067,7 @@ def main():
     from lidardetection_tpu_torch.ops.vfe_cuda import pillar_vfe
     from lidardetection_tpu_torch.train import Trainer
 
-    def served(cfg_file, n_requests, per_request):
+    def served(cfg_file, n_requests, per_request, earlier):
         """Detector with live NMS candidates, warmed up, then the main
         path: returns it, its clouds and the launch counts of the run."""
         det = Detector(cfg_file, device='cuda', seed=SEED)
@@ -1818,11 +2077,13 @@ def main():
         for points in clouds[:2]:  # warm-up: cuDNN plans, allocator
             det.postprocess(det.forward(det.make_batch([points])))
         torch.cuda.synchronize()
-        return det, clouds[2:], serve_phase(torch, det, clouds[2:], per_request)
+        return det, clouds[2:], serve_phase(torch, det, clouds[2:],
+                                            per_request, earlier)
 
     print('== PointPillar ==', flush=True)
-    det, clouds, launches = served(CFG, N_REQUESTS,
-                                   {pillar_vfe: 1, scatter_rows: 1})
+    det, clouds, launches = served(
+        CFG, N_REQUESTS, {pillar_vfe: 1, scatter_rows: 1},
+        {'latency': 120.99, 'make_batch': 31.35, 'postprocess': 82.63})
     (k1, k2), scatter_case = pillar_kernel_phase(torch, det)
     forward_split(torch, det, clouds[0])
     compare_phase(torch, det, CFG, clouds[:2])
@@ -1830,7 +2091,8 @@ def main():
 
     print('== SECOND ==', flush=True)
     det, clouds, launches_second = served(
-        CFG_SECOND, N_REQUESTS_SECOND, {rulebook_conv: 12, scatter_rows: 1})
+        CFG_SECOND, N_REQUESTS_SECOND, {rulebook_conv: 12, scatter_rows: 1},
+        {'latency': 113.77, 'postprocess': 79.39})
     k3, k2_second = sparse_kernel_phase(torch, det)
     k2['second'] = k2_second
     forward_split(torch, det, clouds[0])
@@ -1842,14 +2104,15 @@ def main():
     wrappers = (pillar_vfe, scatter_rows, rulebook_conv, rulebook_conv_dw,
                 ball_select)
     det, clouds, launches_pvrcnn = served(
-        CFG_PVRCNN, N_REQUESTS_PVRCNN, dict(zip(wrappers, (0, 1, 12, 0, 5))))
+        CFG_PVRCNN, N_REQUESTS_PVRCNN, dict(zip(wrappers, (0, 1, 12, 0, 5))),
+        {'latency': 83.04})
     k5 = select_kernel_phase(torch, det)
     pvrcnn_split(torch, det, clouds[0], k5)
     compare_plain_phase(torch, det, CFG_PVRCNN, clouds[0], wrappers)
     profiled.append((det, clouds[0]))
     del det
 
-    def trained(cfg_file, seed, per_step, schedule_steps=None):
+    def trained(cfg_file, seed, per_step, earlier, schedule_steps=None):
         """Trainer at full width, its batches, and the launch counts of
         the timed steps of the training main path. The one-cycle schedule
         spans `schedule_steps` (default: the steps taken here)."""
@@ -1860,20 +2123,25 @@ def main():
         print(f'make_batch B={train_batch_size(trainer)} (host voxelization at the train cap '
               f'of {trainer.max_voxels} and the copy): p50 {make_ms:.2f} ms',
               flush=True)
-        return trainer, batches, train_phase(torch, trainer, batches, per_step)
+        return trainer, batches, train_phase(torch, trainer, batches,
+                                             per_step, earlier)
 
     print('== PointPillar training ==', flush=True)
     trainer, batches, launches_train = trained(
-        CFG, SEED + 300, dict(zip(wrappers, (0, 1, 0, 0, 0))))
+        CFG, SEED + 300, dict(zip(wrappers, (0, 1, 0, 0, 0))), 42.00)
     step_split(torch, trainer, batches[-1])
     compare_train_phase(torch, trainer, CFG, batches[-1], wrappers)
     trainer_pillar, batch_pillar = trainer, batches[-1]
     del trainer, batches
 
     print('== SECOND training ==', flush=True)
+    # the training plan: 12 K3 forward, 7 submanifold and 4 strided df
     trainer, batches, launches_train_second = trained(
-        CFG_SECOND, SEED + 400, dict(zip(wrappers, (0, 1, 12 + 7, 12, 0))))
+        CFG_SECOND, SEED + 400, dict(zip(wrappers, (0, 1, 12 + 11, 12, 0))),
+        97.99)
     split = step_split(torch, trainer, batches[-1])
+    reproducibility_phase(torch, trainer, batches[-1])
+    host_plan_phase(trainer)
     k4, k3_step = weight_gradient_phase(torch, trainer, batches[-1],
                                         split['backward'])
     k3.update(k3_step)
@@ -1886,8 +2154,8 @@ def main():
     # one-cycle squeezed into five steps reaches pv_rcnn.yaml's LR of 0.01
     # at the third, where the random-weight model's boxes grow without bound
     trainer, batches, launches_train_pvrcnn = trained(
-        CFG_PVRCNN, SEED + 600, dict(zip(wrappers, (0, 1, 12 + 7, 12, 5))),
-        schedule_steps=1000)
+        CFG_PVRCNN, SEED + 600, dict(zip(wrappers, (0, 1, 12 + 11, 12, 5))),
+        967.02, schedule_steps=1000)
     pvrcnn_step_split(torch, trainer, batches[-1])
     compare_train_phase(torch, trainer, CFG_PVRCNN, batches[-1], wrappers)
     trainer_pvrcnn, batch_pvrcnn = trainer, batches[-1]
@@ -1900,6 +2168,7 @@ def main():
     launches_eval_second, annos, dataset = eval_phase(
         torch, CFG_SECOND, dict(zip(wrappers, (0, 1, 12, 0, 0))))
     evals['SECONDNet'] = (dataset, annos)
+    bucketed_eval_phase(torch, CFG_SECOND)
     protocol_phase(evals)
     precise_bn_phase(torch)
 

@@ -8,11 +8,12 @@ written out as elementwise float32 multiply-adds, never ``einsum`` or
 ``matmul``: a reduced-precision product (bf16 on the TPU, TF32 on the
 card) breaks the collinear-edge tie handling for near-identical boxes.
 
-NMS is exact greedy in score order: one IoU-above-threshold matrix over the
-live candidates, computed on the device in row chunks and packed to bits,
-then the greedy sweep on the host (as the reference's CUDA NMS does its
-final pass). The JAX package's blocked and adaptive-tier loops are a TPU
-latency device and have no counterpart here.
+NMS is exact greedy in score order, walked in blocks as the JAX package
+walks it (lidardetection_tpu/core/iou3d.py:420-595): the next `block` live
+candidates of every sample have their IoU rows against all candidates
+computed on the device, one copy to the host resolves the block in order
+and removes what its kept rows suppress, and the walk stops at
+`post_maxsize` kept rows. Only the rows the walk reaches are computed.
 """
 
 import math
@@ -24,7 +25,6 @@ from .geometry import corners_bev, limit_period
 
 _PAR_TOL = 1e-4   # |n.d| <= tol*|d| -> treat edge as parallel to the face
 _TIE_TOL = 1e-3   # signed-distance window for boundary-coincidence ties (m)
-_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)  # np.packbits bit order
 
 
 def _rect_halfplanes(boxes):
@@ -139,34 +139,34 @@ def top_k(x, k):
     return vals[..., :k], idx[..., :k]
 
 
-def _greedy_sweep(packed, post_maxsize):
-    """Greedy pass over a packed suppression matrix, rows in score order:
-    keep a row unless an earlier kept row suppresses it."""
-    removed = np.zeros(packed.shape[1], np.uint8)
-    keep = []
-    for i in range(packed.shape[0]):
-        if (removed[i >> 3] >> (7 - (i & 7))) & 1:
-            continue
-        keep.append(i)
-        if len(keep) == post_maxsize:
-            break
-        removed |= packed[i]
-    return keep
+def _iou_parts(parts_a, area_a, parts_b, area_b):
+    """IoU from broadcastable `_box_clip_parts` and areas, with the
+    operations of `boxes_iou_bev`."""
+    overlap = _pair_overlap_parts(parts_a, parts_b)
+    return overlap / (area_a + area_b - overlap).clamp(min=1e-6)
 
 
 def nms_bev_batched(boxes, scores, thresh, pre_maxsize, post_maxsize,
-                    valid_mask=None, assume_sorted=False):
+                    valid_mask=None, assume_sorted=False, block=32,
+                    adaptive_tier=512):
     """Batched rotated-BEV greedy NMS (lidardetection_tpu/core/iou3d.py:544).
 
     Args: boxes (B, N, 7); scores (B, N); valid_mask (B, N) optional bool.
         assume_sorted: scores already descend along N with invalid rows at
             the tail (straight out of a top-k), so the pre-NMS sort is
             skipped when pre_maxsize covers N.
+        block: live candidates resolved together per sample and step.
+        adaptive_tier: when no sample has more live candidates than this,
+            the walk runs on that prefix of the score order (live rows sort
+            first, so the result is the same); 0 disables.
     Returns: (indices (B, post) int64 into the input N axis, padded with 0;
-    keep_mask (B, post) bool; num_kept (B,) int64).
+    keep_mask (B, post) bool; num_kept (B,) int64; rows_read (B,) int64
+    numpy, the IoU rows each sample's walk computed).
 
     A candidate j is suppressed by a kept i when IoU(i, j) > thresh, with i
-    as the first rectangle of the pair, as in the JAX package.
+    as the first rectangle of the pair, as in the JAX package. A kept row
+    is removed explicitly: the self-IoU of identical rectangles can round
+    to 0.
     """
     bsz, n = scores.shape
     dev = scores.device
@@ -183,28 +183,59 @@ def nms_bev_batched(boxes, scores, thresh, pre_maxsize, post_maxsize,
         top_scores, order = top_k(masked, k)
         top_boxes = torch.gather(
             boxes, 1, order[..., None].expand(-1, -1, boxes.shape[-1]))
-    top_valid = top_scores > neg_inf
-    bits = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=dev)
+    live = (top_scores > neg_inf).cpu().numpy()
+    width = k
+    if adaptive_tier and k > adaptive_tier \
+            and live.sum(1).max() <= adaptive_tier:
+        width = adaptive_tier
+    live = live[:, :width].copy()
+    all_boxes = top_boxes[:, :width, :7]
+    parts = _box_clip_parts(all_boxes)
+    area = all_boxes[..., 3] * all_boxes[..., 4]
+    all_parts = tuple(p[:, None] for p in parts)
+    rows = torch.arange(bsz, device=dev)[:, None]
 
-    out = torch.zeros((bsz, post_maxsize), dtype=torch.int64, device=dev)
-    num_kept = torch.zeros((bsz,), dtype=torch.int64, device=dev)
-    for s in range(bsz):
-        pos = torch.nonzero(top_valid[s]).squeeze(1)  # live, in score order
-        live = int(pos.numel())
-        if live == 0:
-            continue
-        bx = top_boxes[s, pos, :7]
-        sup = (boxes_iou_bev(bx, bx) > thresh).to(torch.uint8)
-        width = -(-live // 8) * 8
-        sup = torch.nn.functional.pad(sup, (0, width - live))
-        packed = (sup.view(live, width // 8, 8) * bits).sum(
-            -1, dtype=torch.uint8)
-        keep = _greedy_sweep(packed.cpu().numpy(), post_maxsize)
-        kept = pos[torch.as_tensor(keep, device=dev)]
-        out[s, :len(keep)] = order[s, kept]
-        num_kept[s] = len(keep)
+    kept = [[] for _ in range(bsz)]
+    rows_read = np.zeros(bsz, np.int64)
+    m = min(block, width)
+    while True:
+        active = [s for s in range(bsz)
+                  if len(kept[s]) < post_maxsize and live[s].any()]
+        if not active:
+            break
+        # the next m live candidates of each active sample, in score order
+        blk = np.zeros((bsz, m), np.int64)
+        count = np.zeros(bsz, np.int64)
+        for s in active:
+            pos = np.flatnonzero(live[s])[:m]
+            blk[s, :pos.size], count[s] = pos, pos.size
+        idx = torch.from_numpy(blk).to(dev)
+        iou = _iou_parts(tuple(p[rows, idx][:, :, None] for p in parts),
+                         area[rows, idx][:, :, None], all_parts,
+                         area[:, None, :])
+        sup = (iou > thresh).cpu().numpy()  # (B, m, width)
+        for s in active:
+            rows_read[s] += count[s]
+            done = []  # block rows kept, in order
+            for j in range(count[s]):
+                if any(sup[s, d, blk[s, j]] for d in done):
+                    continue
+                done.append(j)
+                kept[s].append(int(blk[s, j]))
+                if len(kept[s]) == post_maxsize:
+                    break
+            live[s] &= ~sup[s, done].any(0)
+            live[s, blk[s, done]] = False
+
+    num = np.array([len(kp) for kp in kept], np.int64)
+    kept_pos = np.zeros((bsz, post_maxsize), np.int64)
+    for s, kp in enumerate(kept):
+        kept_pos[s, :len(kp)] = kp
+    num_kept = torch.from_numpy(num).to(dev)
     keep_mask = torch.arange(post_maxsize, device=dev)[None, :] < num_kept[:, None]
-    return out, keep_mask, num_kept
+    out = torch.where(keep_mask, torch.gather(
+        order, 1, torch.from_numpy(kept_pos).to(dev)), 0)
+    return out, keep_mask, num_kept, rows_read
 
 
 def boxes_iou_normal(boxes_a, boxes_b):

@@ -12,7 +12,10 @@ import numpy as np
 
 from ..config import dataset_info, raw_point_capacity, voxel_processor_cfg
 from ..core import np_geometry as npg
+from ..ops.sparse_plan import config_plan
 from ..ops.voxelize import build_batch
+
+BUCKET_GRANULARITY = 4096  # lidardetection_tpu/datasets/__init__.py:49
 
 CLASS_SIZE = {
     'Car': (3.9, 1.6, 1.56),
@@ -234,20 +237,58 @@ class SyntheticLoader:
             yield self.collate([self.dataset[j] for j in ids])
 
 
+def bucket_voxels(batch, plan):
+    """Lossless occupancy bucketing of an eval batch, in place (the JAX
+    package's ``DataLoader._bucket``, datasets/__init__.py:69-92): the voxel
+    table is cut to the batch's largest ``num_voxels`` rounded up to
+    BUCKET_GRANULARITY (at most the capacity), and with a host `plan` every
+    later stage's table the same way by its ``rb_<name>_num``. Tables are
+    sorted with the padding at the tail, so only padding goes. Rulebook
+    values are clamped to the new capacity of the table they index, so a
+    miss stays equal to it. Returns the batch."""
+    cap = batch['voxels'].shape[1]
+
+    def cut(num, capacity):
+        g = BUCKET_GRANULARITY
+        m = -(-max(1, int(num.max())) // g) * g
+        return min(m, capacity)
+
+    m = cut(batch['num_voxels'], cap)
+    if m < cap:
+        for key in ('voxels', 'voxel_coords', 'voxel_num_points'):
+            batch[key] = np.ascontiguousarray(batch[key][:, :m])
+    if plan is not None and f'rb_{plan.ops[0].name}' in batch:
+        stages, rows, values = plan.bucket_spec()
+        m_stage = [m] + [cut(batch[num_key], capacity)
+                         for num_key, capacity in stages[1:]]
+        for key, stage in rows:
+            if m_stage[stage] < batch[key].shape[1]:
+                batch[key] = np.ascontiguousarray(batch[key][:, :m_stage[stage]])
+        for key, stage in values:
+            np.minimum(batch[key], np.int32(m_stage[stage]), out=batch[key])
+    return batch
+
+
 def build_test_loader(cfg, batch_size, num_scenes, seed=0):
     """The test-mode set and loader of a config (the JAX package's
-    ``build_dataloader(training=False)`` on its synthetic set): scenes in
-    order, every one of them, points not shuffled, voxelized on the host at
-    the config's ``test`` cap. A batch is a dict of numpy arrays: the
-    voxel table, the raw ``points`` / ``num_points`` padded to MAX_POINTS
-    when the model reads them (``config.raw_point_capacity``), the padded
-    ``gt_boxes`` that the recall counters read, ``frame_id`` and
-    ``batch_size``. Warns when a scene fills the cap: the table then keeps
-    the first voxels in scan order, a spatially biased crop."""
+    ``build_dataloader(training=False, model_cfg=...)`` on its synthetic
+    set): scenes in order, every one of them, points not shuffled,
+    voxelized on the host at the config's ``test`` cap. A batch is a dict
+    of numpy arrays: the voxel table, the host plan's ``rb_*`` tables for a
+    model with a sparse 3D backbone (``ops/sparse_plan.py::config_plan``),
+    the raw ``points`` / ``num_points`` padded to MAX_POINTS when the model
+    reads them (``config.raw_point_capacity``), the padded ``gt_boxes``
+    that the recall counters read, ``frame_id`` and ``batch_size``. Unless
+    DATA_CONFIG.VOXEL_BUCKETING is false, the tables are cut to the
+    batch's occupancy (`bucket_voxels`). Warns when a scene fills the cap:
+    the table then keeps the first voxels in scan order, a spatially
+    biased crop."""
     data_cfg = cfg['DATA_CONFIG']
     info = dataset_info(data_cfg)
     vox = voxel_processor_cfg(data_cfg)
     max_voxels = int(vox['MAX_NUMBER_OF_VOXELS']['test'])
+    plan = config_plan(cfg, training=False)
+    bucketing = bool(data_cfg.get('VOXEL_BUCKETING', True))
     dataset = SyntheticDataset(
         cfg['CLASS_NAMES'], info['point_cloud_range'], num_scenes=num_scenes,
         seed=seed, max_gt_boxes=int(data_cfg.get('MAX_GT_BOXES', 64)),
@@ -257,12 +298,14 @@ def build_test_loader(cfg, batch_size, num_scenes, seed=0):
         batch = build_batch([points for points, _, _ in items],
                             info['point_cloud_range'], info['voxel_size'],
                             int(vox['MAX_POINTS_PER_VOXEL']), max_voxels,
-                            max_points=raw_point_capacity(cfg))
+                            max_points=raw_point_capacity(cfg), plan=plan)
         if (batch['num_voxels'] >= max_voxels).any():
             warnings.warn(f'MAX_NUMBER_OF_VOXELS[test]={max_voxels} saturated: '
                           f'eval truncation keeps the first voxels in scan '
                           f'order and can zero AP; raise the cap',
                           RuntimeWarning, stacklevel=2)
+        if bucketing:
+            bucket_voxels(batch, plan)
         batch['gt_boxes'] = np.stack([gt for _, gt, _ in items])
         batch['frame_id'] = np.array([i for _, _, i in items])
         batch['batch_size'] = len(items)

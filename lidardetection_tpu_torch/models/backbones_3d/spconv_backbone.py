@@ -8,11 +8,18 @@ encoded tensor. Each stage's rulebook is built once per forward
 convolution runs through kernel K3. The sparse shape is
 grid_size[::-1] + [1, 0, 0], as in the reference.
 
+The rulebooks come from the batch when it carries the host plan's tables
+(``rb_subm1`` and the rest, ``ops/sparse_plan.py``; the table then sits
+as the voxelizer sorted it), else they are built on the device. Both give
+the same integers.
+
 In training BatchNorm takes its statistics over the valid rows, every
 layer's weight gradient runs through kernel K4, and the input gradient of
-a submanifold layer through K3 over the offset-flipped rulebook. The
-strided layers have no transposed rulebook on this (device-built) path
-and take the plain scatter-add, as they do in the JAX package.
+a submanifold layer through K3 over the offset-flipped rulebook. A strided
+layer's input gradient runs through K3 over its transposed rulebook
+``rb_<name>_bwd`` when the batch carries the training plan; the
+device-built path has none and takes the plain scatter-add, as the JAX
+package's device path does.
 
 ``convs`` holds the SparseConvLayers and ``blocks`` the SparseBasicBlocks
 in the JAX module's creation order (``SparseConvLayer_<n>`` /
@@ -24,11 +31,6 @@ from torch import nn
 
 from ...ops import sparse
 from ..layers import MaskedBatchNorm, lecun_normal_
-
-HOST_PLAN_NOT_PORTED = (
-    'host-built rulebooks (rb_* batch keys) are not ported yet: see '
-    'ROADMAP.md queue 1, "Host rulebook plan"')
-
 
 class SparseConvLayer(nn.Module):
     """One sparse convolution over a prebuilt rulebook + BN + ReLU.
@@ -49,11 +51,12 @@ class SparseConvLayer(nn.Module):
         lecun_normal_(self.kernel, kernel_volume * in_channels, generator)
         self.bn = MaskedBatchNorm(out_channels, axis=-1)
 
-    def forward(self, features, valid_mask, rulebook):
+    def forward(self, features, valid_mask, rulebook, rb_bwd=None,
+                in_valid=None):
         cdt = self.dtype or features.dtype
         out = sparse.sparse_conv_apply(
             features.to(cdt), valid_mask, rulebook, self.kernel.to(cdt),
-            subm=self.subm)
+            rb_bwd=rb_bwd, in_valid=in_valid, subm=self.subm)
         out = self.bn(out.to(cdt), mask=valid_mask)
         if self.use_relu:
             out = torch.relu(out)
@@ -85,8 +88,10 @@ class VoxelBackBone8x(nn.Module):
     Reads ``voxel_features`` (B, V, C), ``voxel_coords`` and ``num_voxels``;
     adds ``encoded_spconv_tensor`` (B, D, H, W, 128) dense, its stride, and
     ``multi_scale_3d_features`` (a SparseTensor per stage) with their
-    strides. MODEL.BACKBONE_3D.OUT_CAPACITIES, when given, caps the four
-    strided tables; the default is the input capacity.
+    strides. With ``rb_subm1`` in the batch every table and rulebook comes
+    from the host plan's ``rb_*`` keys. MODEL.BACKBONE_3D.OUT_CAPACITIES,
+    when given, caps the four strided tables; the default is the input
+    capacity.
     """
 
     num_point_features = 128
@@ -126,16 +131,20 @@ class VoxelBackBone8x(nn.Module):
         self.blocks = nn.ModuleList(blocks)
 
     def forward(self, batch):
-        if any(key.startswith('rb_') for key in batch):
-            raise NotImplementedError(HOST_PLAN_NOT_PORTED)
         feats = batch['voxel_features']
         cap = feats.shape[1]
-        st = sparse.from_unsorted(feats, batch['voxel_coords'],
-                                  batch['num_voxels'], self.spatial_shape)
+        host = 'rb_subm1' in batch
+        if host:  # the host voxelizer emits the table sorted
+            st = sparse.SparseTensor(feats, batch['voxel_coords'],
+                                     batch['num_voxels'], self.spatial_shape)
+        else:
+            st = sparse.from_unsorted(feats, batch['voxel_coords'],
+                                      batch['num_voxels'], self.spatial_shape)
         convs, blocks = iter(self.convs), iter(self.blocks)
 
-        def subm_stack(st, n_blocks, first_plain=False):
-            rule = sparse.build_subm_rulebook(st, (3, 3, 3))
+        def subm_stack(st, n_blocks, name, first_plain=False):
+            rule = batch[f'rb_{name}'] if host \
+                else sparse.build_subm_rulebook(st, (3, 3, 3))
             vm, f = st.valid_mask, st.features
             if first_plain:
                 f = next(convs)(f, vm, rule)
@@ -143,25 +152,38 @@ class VoxelBackBone8x(nn.Module):
                 f = next(blocks if self.residual else convs)(f, vm, rule)
             return st._replace(features=f)
 
-        def downsample(st, stride, padding, kernel, stage):
-            capacity = cap if self.capacities is None \
-                else int(self.capacities[stage])
-            out_coords, out_num, out_shape = sparse.build_strided_out_coords(
-                st, kernel, stride, padding, capacity)
-            rule = sparse.build_strided_rulebook(
-                st, out_coords, out_shape, kernel, stride, padding)
-            f = next(convs)(st.features, out_coords[..., 0] >= 0, rule)
+        def downsample(st, stride, padding, kernel, stage, name):
+            if host:
+                out_coords = batch[f'rb_{name}_coords']
+                out_num = batch[f'rb_{name}_num']
+                rule = batch[f'rb_{name}']
+                out_shape = tuple(
+                    (n + 2 * p - (k - 1) - 1) // s + 1 for n, k, s, p in
+                    zip(st.spatial_shape, kernel, stride, padding))
+            else:
+                capacity = cap if self.capacities is None \
+                    else int(self.capacities[stage])
+                out_coords, out_num, out_shape = \
+                    sparse.build_strided_out_coords(
+                        st, kernel, stride, padding, capacity)
+                rule = sparse.build_strided_rulebook(
+                    st, out_coords, out_shape, kernel, stride, padding)
+            # the training plan's transposed rulebook, over the input table
+            rb_bwd = batch.get(f'rb_{name}_bwd') if host else None
+            f = next(convs)(st.features, out_coords[..., 0] >= 0, rule,
+                            rb_bwd=rb_bwd, in_valid=st.valid_mask)
             return sparse.SparseTensor(f, out_coords, out_num, out_shape)
 
         stages = {}
-        st = stages['x_conv1'] = subm_stack(st, 1, first_plain=True)
+        st = stages['x_conv1'] = subm_stack(st, 1, 'subm1', first_plain=True)
         for stage, (name, padding) in enumerate((
                 ('x_conv2', (1, 1, 1)), ('x_conv3', (1, 1, 1)),
                 ('x_conv4', (0, 1, 1)))):
-            st = downsample(st, (2, 2, 2), padding, (3, 3, 3), stage)
-            st = stages[name] = subm_stack(st, 2)
+            st = downsample(st, (2, 2, 2), padding, (3, 3, 3), stage,
+                            f'down{stage + 2}')
+            st = stages[name] = subm_stack(st, 2, f'subm{stage + 2}')
         # conv_out: z-compression (3,1,1)/(2,1,1), no padding
-        st_out = downsample(st, (2, 1, 1), (0, 0, 0), (3, 1, 1), 3)
+        st_out = downsample(st, (2, 1, 1), (0, 0, 0), (3, 1, 1), 3, 'out')
 
         return {
             **batch,

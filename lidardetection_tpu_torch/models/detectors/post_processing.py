@@ -101,7 +101,7 @@ def post_processing(batch, post_cfg, num_class):
 
     post = int(nms_cfg['NMS_POST_MAXSIZE'])
     # candidates come out of a top-k, so they already descend by score
-    idx, mask, num = nms_bev_batched(
+    idx, mask, num, _ = nms_bev_batched(
         box_preds[..., 0:7], scores, thresh=nms_cfg['NMS_THRESH'],
         pre_maxsize=int(nms_cfg['NMS_PRE_MAXSIZE']), post_maxsize=post,
         valid_mask=live, assume_sorted=True)
@@ -119,7 +119,7 @@ def _decoded_post_processing(batch, nms_cfg, score_thresh, normalized):
     labels = batch['roi_labels'].long()
     if score_thresh is not None:
         valid = valid & (scores >= score_thresh)
-    idx, mask, num = nms_bev_batched(
+    idx, mask, num, _ = nms_bev_batched(
         box_preds[..., 0:7], scores, thresh=nms_cfg['NMS_THRESH'],
         pre_maxsize=int(nms_cfg['NMS_PRE_MAXSIZE']),
         post_maxsize=int(nms_cfg['NMS_POST_MAXSIZE']), valid_mask=valid)

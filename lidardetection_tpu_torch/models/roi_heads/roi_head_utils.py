@@ -35,7 +35,7 @@ def proposal_layer(batch, nms_cfg):
     cls_preds = batch['batch_cls_preds']
     scores = cls_preds.amax(-1)
     labels = cls_preds.argmax(-1)
-    idx, mask, _ = nms_bev_batched(
+    idx, mask, _, _ = nms_bev_batched(
         box_preds[..., 0:7].detach(), scores.detach(),
         thresh=nms_cfg['NMS_THRESH'],
         pre_maxsize=int(nms_cfg['NMS_PRE_MAXSIZE']),

@@ -1,18 +1,20 @@
-"""The host C++ of the KITTI protocol, bound with ctypes (a copy of
-lidardetection_tpu/native/__init__.py:134-203 for these functions).
+"""The host C++ of the port, bound with ctypes (a copy of
+lidardetection_tpu/native/__init__.py:90-203 for these functions).
 
-``rotated_iou.cpp`` (the rotated BEV IoU of box pairs) and
-``kitti_stats.cpp`` (the protocol's matching loops) are compiled at first
-use with the host ``g++ -O3 -shared -fPIC -std=c++17`` into
+``rotated_iou.cpp`` (the rotated BEV IoU of box pairs), ``kitti_stats.cpp``
+(the KITTI protocol's matching loops), ``voxelizer.cpp`` (the hard
+voxelizer) and ``rulebooks.cpp`` (the sparse-conv rulebook chain of a
+host plan) are compiled at first use with the host ``g++ -O3 -shared
+-fPIC -std=c++17`` into
 ``build/libhost-<hash>.so`` at the repository root, beside the CUDA
 kernels of ``ops/_build.py``; the hash covers the sources and the flags,
 so an edited source is rebuilt. A build writes to a temporary name and
 renames it. A library that fails to build raises with the compiler's
 messages: nothing gives way in silence.
 
-The numpy code of ``core/np_geometry.py`` and of the protocol
-(``datasets/kitti/kitti_object_eval/eval.py``) is the plain version of
-this library. It is taken only when asked for: set the environment
+The numpy code of ``core/np_geometry.py``, of the protocol
+(``datasets/kitti/kitti_object_eval/eval.py``), of ``ops/voxelize.py`` and
+of ``ops/sparse_plan.py`` is the plain version of this library. It is taken only when asked for: set the environment
 variable ``LIDARDET_TORCH_PLAIN_HOST=1``, or run inside ``plain_host()``.
 """
 
@@ -28,7 +30,8 @@ import numpy as np
 
 PLAIN_ENV = 'LIDARDET_TORCH_PLAIN_HOST'
 SOURCES = tuple(Path(__file__).resolve().parent / name
-                for name in ('rotated_iou.cpp', 'kitti_stats.cpp'))
+                for name in ('rotated_iou.cpp', 'kitti_stats.cpp',
+                             'voxelizer.cpp', 'rulebooks.cpp'))
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
 CXX_FLAGS = ('-O3', '-shared', '-fPIC', '-std=c++17')
 
@@ -91,6 +94,16 @@ def load():
             f32p = ctypes.POINTER(ctypes.c_float)
             f64p = ctypes.POINTER(ctypes.c_double)
             i32p = ctypes.POINTER(ctypes.c_int32)
+            i64p = ctypes.POINTER(ctypes.c_int64)
+            lib.voxelize_f32.restype = ctypes.c_int32
+            lib.voxelize_f32.argtypes = [
+                f32p, ctypes.c_int64, ctypes.c_int32, f32p, f32p,
+                ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, f32p, i32p,
+                i32p]
+            lib.build_rulebooks.restype = ctypes.c_int32
+            lib.build_rulebooks.argtypes = [
+                i32p, ctypes.c_int32, ctypes.c_int32, i64p, i32p,
+                ctypes.c_int32, i32p, i32p, i32p]
             lib.rotated_iou_bev.restype = None
             lib.rotated_iou_bev.argtypes = [
                 f32p, ctypes.c_int64, f32p, ctypes.c_int64, ctypes.c_int32,
@@ -118,6 +131,46 @@ def _f64p(a):
 
 def _i32p(a):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+
+
+def voxelize(points, point_cloud_range, voxel_size, max_points_per_voxel,
+             max_voxels):
+    """The hard voxelizer of ``ops/voxelize.py::voxelize_np`` (its
+    outputs, the table sorted by linear key)."""
+    lib = load()
+    points = np.ascontiguousarray(points, dtype=np.float32)
+    pc_range = np.ascontiguousarray(point_cloud_range, dtype=np.float32)
+    vsz = np.ascontiguousarray(voxel_size, dtype=np.float32)
+    n, c = points.shape
+    voxels = np.empty((max_voxels, max_points_per_voxel, c), np.float32)
+    coords = np.empty((max_voxels, 3), np.int32)
+    num_points = np.empty((max_voxels,), np.int32)
+    n_vox = lib.voxelize_f32(
+        _f32p(points), n, c, _f32p(pc_range), _f32p(vsz),
+        max_points_per_voxel, max_voxels, 1,
+        _f32p(voxels), _i32p(coords), _i32p(num_points))
+    return voxels, coords, num_points, int(n_vox)
+
+
+def build_rulebooks(coords, n_vox, cap_in, spatial_shape, plan_records,
+                    total_rb, total_oc, n_down):
+    """The rulebook chain of a plan (``ops/sparse_plan.py``) for one scan:
+    flat int32 (rulebooks, out coords, out nums)."""
+    lib = load()
+    coords = np.ascontiguousarray(coords, dtype=np.int32)
+    spatial = np.ascontiguousarray(spatial_shape, dtype=np.int64)
+    plan = np.ascontiguousarray(plan_records, dtype=np.int32)
+    rb_buf = np.empty(total_rb, np.int32)
+    oc_buf = np.empty(max(total_oc, 1), np.int32)
+    on_buf = np.empty(max(n_down, 1), np.int32)
+    rc = lib.build_rulebooks(
+        _i32p(coords), int(n_vox), int(cap_in),
+        spatial.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        _i32p(plan), plan.shape[0], _i32p(rb_buf), _i32p(oc_buf),
+        _i32p(on_buf))
+    if rc != 0:
+        raise ValueError(f'build_rulebooks failed (rc={rc})')
+    return rb_buf, oc_buf[:total_oc], on_buf[:n_down]
 
 
 def rotated_iou_bev(boxes_a, boxes_b, criterion=-1):

@@ -9,14 +9,23 @@ Same semantics as the JAX package's ``ops/voxelize.py::voxelize_np``
   * the table is then sorted by linear key ``(z*gy + y)*gx + x``;
   * coords are (z, y, x), padded with -1.
 
-Vectorized with ``np.unique`` and a stable sort instead of a per-point
-loop. The TPU scatter's tile histogram (``bev_tile_starts``) has no place
-here: the CUDA scatter writes each row straight to its key.
+``voxelize_np`` runs the host library's ``voxelize_f32``
+(``native/voxelizer.cpp``, a copy of the JAX package's); its plain version,
+vectorized with ``np.unique`` and a stable sort, is taken only when asked
+for (``native.plain_host()`` or ``LIDARDET_TORCH_PLAIN_HOST=1``). Both give
+the same arrays bit for bit. The TPU scatter's tile histogram
+(``bev_tile_starts``) has no place here: the CUDA scatter writes each row
+straight to its key.
 """
+
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from .. import native
 from ..config import grid_size_from_range
+from .sparse_plan import build_host_rulebooks
 
 
 def mask_points_by_range(points, limit_range):
@@ -38,6 +47,17 @@ def voxelize_np(points, point_cloud_range, voxel_size, max_points_per_voxel,
         num_points_per_voxel (max_voxels,) int32;
         num_voxels int.
     """
+    points = np.asarray(points, dtype=np.float32)
+    if not native.plain_requested():
+        return native.voxelize(points, point_cloud_range, voxel_size,
+                               max_points_per_voxel, max_voxels)
+    return voxelize_plain(points, point_cloud_range, voxel_size,
+                          max_points_per_voxel, max_voxels)
+
+
+def voxelize_plain(points, point_cloud_range, voxel_size,
+                   max_points_per_voxel, max_voxels):
+    """The numpy plain version of `voxelize_np`."""
     points = np.asarray(points, dtype=np.float32)
     pc_range = np.asarray(point_cloud_range, dtype=np.float32)
     vsz = np.asarray(voxel_size, dtype=np.float32)
@@ -84,7 +104,7 @@ def voxelize_np(points, point_cloud_range, voxel_size, max_points_per_voxel,
 
 
 def build_batch(points_list, point_cloud_range, voxel_size,
-                max_points_per_voxel, max_voxels, max_points=None):
+                max_points_per_voxel, max_voxels, max_points=None, plan=None):
     """Filter, voxelize and stack clouds at fixed capacity.
 
     Returns a dict of numpy arrays: voxels (B, V, P, C) float32,
@@ -93,16 +113,29 @@ def build_batch(points_list, point_cloud_range, voxel_size,
     detectors that read raw points) also points (B, max_points, C)
     float32, each cloud's in-range points in their order, zero-padded
     (cut at max_points), and num_points (B,) int32, as the JAX package's
-    data processor pads them (data_processor.py:122-133).
+    data processor pads them (data_processor.py:122-133). With a host
+    `plan` (``ops/sparse_plan.py``) also its ``rb_*`` tables, built per
+    scan from the voxel table before the batch is stacked, as the JAX
+    package's ``DatasetTemplate.prepare_data`` builds them.
+
+    The scans are voxelized (and their tables built) in a thread each,
+    up to the host's core count: the host library's calls release the
+    GIL, as the JAX package's data workers build scans in parallel.
     """
     pc_range = np.asarray(point_cloud_range, np.float32)
-    tables, clouds = [], []
-    for points in points_list:
+
+    def scan(points):
         points = np.asarray(points, np.float32)
         points = points[mask_points_by_range(points, pc_range)]
-        clouds.append(points)
-        tables.append(voxelize_np(points, pc_range, voxel_size,
-                                  max_points_per_voxel, max_voxels))
+        table = voxelize_np(points, pc_range, voxel_size,
+                            max_points_per_voxel, max_voxels)
+        rulebooks = None if plan is None \
+            else build_host_rulebooks(plan, table[1], table[3])
+        return points, table, rulebooks
+
+    workers = max(1, min(len(points_list), os.cpu_count() or 1))
+    with ThreadPoolExecutor(workers) as pool:
+        clouds, tables, scans = zip(*pool.map(scan, points_list))
     voxels, coords, counts, n_vox = zip(*tables)
     batch = {
         'voxels': np.stack(voxels),
@@ -110,6 +143,9 @@ def build_batch(points_list, point_cloud_range, voxel_size,
         'voxel_num_points': np.stack(counts),
         'num_voxels': np.asarray(n_vox, np.int32),
     }
+    if plan is not None:
+        batch.update({key: np.stack([rb[key] for rb in scans])
+                      for key in scans[0]})
     if max_points is not None:
         width = max(c.shape[1] for c in clouds)
         padded = np.zeros((len(clouds), max_points, width), np.float32)

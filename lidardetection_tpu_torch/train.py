@@ -6,8 +6,10 @@ builds the detector of a YAML config (or of a loaded config) in train mode
 on the card with the config's optimizer; parameters are drawn from ``seed``
 unless a ``state_dict`` is given. ``make_batch(scenes)`` voxelizes
 ``(points, gt_boxes)`` scenes on the host with the config's ``train`` voxel
-cap, ``step(batch)`` takes one optimizer step of a run of ``total_steps``
-and returns the loss terms, ``fit(loader, ckpt_dir)`` runs epochs with
+cap and, for a sparse 3D backbone, builds the host plan's rulebooks
+(``ops/sparse_plan.py``) with each strided layer's transposed table;
+``step(batch)`` takes one optimizer step of a run of ``total_steps``
+and returns the loss terms; ``fit(loader, ckpt_dir)`` runs epochs with
 checkpoints and resume.
 
 The CPU is used only when asked (``device="cpu"``); the default device
@@ -38,6 +40,7 @@ from .config import (
 from .datasets.synthetic import SyntheticDataset, SyntheticLoader
 from .engine.trainer import train_model
 from .models import build_network
+from .ops.sparse_plan import config_plan
 from .ops.voxelize import build_batch
 from .parallel.train_step import TrainState, device_batch, make_train_step
 from .utils.optimization import build_optimizer
@@ -63,6 +66,9 @@ class Trainer:
             for p in data_cfg['DATA_PROCESSOR'])
         self.max_gt_boxes = int(data_cfg.get('MAX_GT_BOXES', 64))
         self.max_points = raw_point_capacity(self.cfg)
+        # the training plan: host rulebooks with each strided layer's
+        # transposed table, so its input gradient runs on K3
+        self.plan = config_plan(self.cfg, training=True)
         self.class_names = tuple(self.cfg['CLASS_NAMES'])
         self.seed = seed
         self.rng = np.random.RandomState(seed)
@@ -84,7 +90,8 @@ class Trainer:
 
     def make_batch(self, scenes):
         """Voxelize ``(points, gt_boxes (G, 8))`` scenes on the host, with
-        the raw points padded to MAX_POINTS when the model reads them; the
+        the raw points padded to MAX_POINTS when the model reads them and
+        the training plan's ``rb_*`` tables for a sparse 3D backbone; the
         batch tensors on the device."""
         clouds = []
         for points, _ in scenes:
@@ -94,7 +101,7 @@ class Trainer:
         arrays = build_batch(clouds, self.info['point_cloud_range'],
                              self.info['voxel_size'],
                              self.max_points_per_voxel, self.max_voxels,
-                             max_points=self.max_points)
+                             max_points=self.max_points, plan=self.plan)
         arrays['gt_boxes'] = np.stack([gt for _, gt in scenes])
         return device_batch(arrays, self.device)
 

@@ -102,9 +102,92 @@ def test_nms_matches_jax(assume_sorted):
             torch.from_numpy(boxes), torch.from_numpy(scores), thresh, pre,
             post, valid_mask=torch.from_numpy(valid),
             assume_sorted=assume_sorted)
-        for g, w in zip(got, want):
+        for g, w in zip(got[:3], want):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
         assert 0 < int(got[2][0]) <= post and int(got[2][2]) == 0
+        assert got[3][2] == 0 and 0 < got[3][0] <= valid[0].sum()
+
+
+def full_matrix_nms(boxes, scores, valid, thresh, post_maxsize):
+    """The oracle: per sample, the whole live x live IoU matrix
+    (`boxes_iou_bev`), then the greedy sweep in score order (ties to the
+    lower index). Returns a list of kept index lists into N."""
+    out = []
+    for b, s, v in zip(boxes, scores, valid):
+        order = np.argsort(-np.where(v, s, -np.inf), kind='stable')
+        order = order[v[order]]
+        bx = torch.from_numpy(np.ascontiguousarray(b[order, :7]))
+        sup = (iou3d.boxes_iou_bev(bx, bx) > thresh).numpy()
+        removed = np.zeros(len(order), bool)
+        keep = []
+        for i in range(len(order)):
+            if removed[i]:
+                continue
+            keep.append(int(order[i]))
+            if len(keep) == post_maxsize:
+                break
+            removed |= sup[i]
+        out.append(keep)
+    return out
+
+
+def _walk_case(rng, live_counts, n=600):
+    """B = len(live_counts) samples of n boxes: clusters of near-duplicates
+    (centimetre and milliradian jitter) and repeated scores among boxes
+    spread over 30 m, `live_counts[b]` of each sample's rows valid."""
+    bsz = len(live_counts)
+    boxes = np.stack([_boxes(rng, n, 15.0) for _ in range(bsz)])
+    src = rng.randint(0, n, (bsz, n // 3))
+    dup = boxes[np.arange(bsz)[:, None], src]
+    dup[..., 0:2] += rng.normal(0, 0.02, dup[..., 0:2].shape)
+    dup[..., 6] += rng.normal(0, 1e-3, dup[..., 6].shape)
+    boxes[:, : n // 3] = dup
+    scores = rng.rand(bsz, n).astype(np.float32)
+    scores[:, 1::7] = scores[:, 0:1]  # ties
+    scores = np.round(scores * 64) / 64  # more ties
+    valid = np.zeros((bsz, n), bool)
+    for b, c in enumerate(live_counts):
+        valid[b, rng.permutation(n)[:c]] = True
+    return boxes.astype(np.float32), scores.astype(np.float32), valid
+
+
+@pytest.fixture(scope='module')
+def jax_nms_600():
+    """The JAX package's nms_bev_batched at (3, 600) with post_maxsize 40,
+    compiled once; thresh is traced."""
+    fn = jax.jit(lambda b, s, t, v: jax_iou3d.nms_bev_batched(
+        b, s, t, pre_maxsize=600, post_maxsize=40, valid_mask=v))
+    return lambda b, s, t, v: [np.asarray(x) for x in fn(
+        jnp.asarray(b), jnp.asarray(s), jnp.float32(t), jnp.asarray(v))]
+
+
+@pytest.mark.parametrize('live_counts,thresh', [
+    ((600, 20, 300), 0.1),     # one sample above the 512 tier, one under post
+    ((600, 20, 300), 0.8),     # little suppression: post reached mid-block
+    ((500, 512, 37), 0.01),    # every sample within the tier
+    ((0, 1, 513), 0.5),        # an empty sample; 513 live is over the tier
+])
+def test_blocked_walk_matches_full_matrix_and_jax(jax_nms_600, live_counts,
+                                                 thresh):
+    rng = np.random.RandomState(sum(live_counts) + int(thresh * 100))
+    boxes, scores, valid = _walk_case(rng, live_counts)
+    want = full_matrix_nms(boxes, scores, valid, thresh, 40)
+    idx, mask, num, rows_read = iou3d.nms_bev_batched(
+        torch.from_numpy(boxes), torch.from_numpy(scores), thresh, 600, 40,
+        valid_mask=torch.from_numpy(valid))
+    got = [idx[b, :int(num[b])].tolist() for b in range(len(live_counts))]
+    assert got == want
+    assert mask.sum(1).tolist() == [len(w) for w in want]
+    j_idx, j_mask, j_num = jax_nms_600(boxes, scores, thresh, valid)
+    np.testing.assert_array_equal(idx.numpy(), j_idx)
+    np.testing.assert_array_equal(mask.numpy(), j_mask)
+    np.testing.assert_array_equal(num.numpy(), j_num)
+    # a sample's walk reads each live row that no earlier block removed,
+    # until post_maxsize are kept or its rows run out
+    for b, c in enumerate(live_counts):
+        assert len(want[b]) <= rows_read[b] <= c
+    if thresh == 0.8:
+        assert len(want[0]) == 40 and rows_read[0] < 100
 
 
 def test_top_k_breaks_ties_to_lower_index():

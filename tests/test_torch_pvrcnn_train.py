@@ -59,7 +59,7 @@ from lidardetection_tpu_torch.core.box_coders import ResidualCoder
 from lidardetection_tpu_torch.datasets.synthetic import build_test_loader
 from lidardetection_tpu_torch.models.dense_heads import point_head
 from lidardetection_tpu_torch.models.layers import dropout
-from lidardetection_tpu_torch.models.roi_heads import roi_head_utils
+from lidardetection_tpu_torch.models.roi_heads import pvrcnn_head, roi_head_utils
 from lidardetection_tpu_torch.ops.select_cuda import ball_select
 from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
     rulebook_conv, rulebook_conv_dw,
@@ -355,18 +355,30 @@ def roi_head_case(jax_step):
                                near=15.0)
     inp.update(batch_box_preds=boxes, batch_cls_preds=logits)
     key = jax.random.PRNGKey(11)
+    pool_in = {}
 
     def run(m, b):
         out = m.roi_head(b, training=True)
         return m.roi_head.loss(out['roi_head_fwd']), out['roi_head_fwd']
 
+    def grab(next_fun, args, kwargs, context):
+        # the RoI grid pool's grid points, as JAX's step computes them
+        if context.method_name == '__call__' and \
+                type(context.module).__name__ == 'RoIGridPool':
+            pool_in['grid_pts'] = args[5]
+        return next_fun(*args, **kwargs)
+
     def loss_fn(p_roi, box_preds, feats):
         b = {**inp, 'batch_box_preds': box_preds, 'point_features': feats}
-        ((loss, tb), fwd), _ = model.apply(
-            {'params': {**params, 'roi_head': p_roi}, 'batch_stats': stats},
-            b, method=run, mutable=['batch_stats'], rngs={'proposal': key})
-        return loss, (tb, {k: v for k, v in fwd.items()
-                           if k != 'reg_tracking_info'})
+        with fnn.intercept_methods(grab):
+            ((loss, tb), fwd), _ = model.apply(
+                {'params': {**params, 'roi_head': p_roi},
+                 'batch_stats': stats},
+                b, method=run, mutable=['batch_stats'],
+                rngs={'proposal': key})
+        return loss, (tb, {**{k: v for k, v in fwd.items()
+                              if k != 'reg_tracking_info'},
+                           'pool_grid_pts': pool_in['grid_pts']})
 
     with _recording_jax_targets():
         (_, (tb, fwd)), grads = jax.jit(jax.value_and_grad(
@@ -386,7 +398,11 @@ def test_roi_head_training_matches_jax(jax_step, roi_head_case):
     batch = {k: torch.from_numpy(np.array(v)) for k, v in inp.items()}
     for key in ('batch_box_preds', 'point_features'):
         batch[key].requires_grad_(True)
-    out = head(batch, _replay(fwd['test_draws']))
+    selections = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pvrcnn_head.p2, 'candidate_rank_select', _recording(
+            pvrcnn_head.p2.candidate_rank_select, selections))
+        out = head(batch, _replay(fwd['test_draws']))
     loss, got_tb = head.loss(out['roi_head_fwd'])
     loss.backward()
     got = out['roi_head_fwd']
@@ -405,6 +421,7 @@ def test_roi_head_training_matches_jax(jax_step, roi_head_case):
                      ('rcnn_cls_labels', 4e-4)):
         np.testing.assert_allclose(got[key].detach().numpy(), fwd[key],
                                    rtol=0, atol=tol, err_msg=key)
+    _assert_same_neighbours(selections, fwd['pool_grid_pts'])
     for key in ('rcnn_cls', 'rcnn_reg'):
         np.testing.assert_allclose(got[key].detach().numpy(), fwd[key],
                                    rtol=0, atol=1e-4, err_msg=key)
@@ -427,6 +444,46 @@ def test_roi_head_training_matches_jax(jax_step, roi_head_case):
         assert top > 0, key
         np.testing.assert_allclose(got_leaf, want, rtol=0, atol=2e-3 * top,
                                    err_msg=key)
+
+
+def _recording(fn, calls):
+    def run(cand_xyz, cand_live, grid, radius, nsample):
+        calls.append((cand_xyz, cand_live, grid, radius))
+        return fn(cand_xyz, cand_live, grid, radius, nsample)
+    return run
+
+
+def _assert_same_neighbours(selections, jax_grid):
+    """The RoI grid pool's discrete input: which candidate keypoints lie
+    within each radius of each grid point. Away from the radius, float32
+    rounding cannot move a pair across it; a pair that crosses adds or
+    drops a whole neighbour and can move a leaf by more than the test's
+    2e-3. So before the gradients are compared: the
+    port's grid points equal JAX's (taken from inside its step) to 1e-5 m,
+    every live (grid point, candidate) pair lies more than 1e-6 of r^2 off
+    the radius in float64, and the two packages' grid points put every
+    pair on the same side."""
+    assert [r for *_, r in selections] == [0.8, 1.6]
+    g_jax = np.asarray(jax_grid, np.float64)
+    for cand_xyz, cand_live, grid, radius in selections:
+        g_port = grid.detach().numpy().astype(np.float64)
+        shift = np.abs(g_port - g_jax).max()
+        assert shift <= 1e-5, f'grid points differ from JAX\'s by {shift} m'
+        c = cand_xyz.detach().numpy().astype(np.float64)[:, :, None]
+        live = cand_live.numpy()[:, :, None, :]
+        r2 = float(np.float32(radius * radius))
+        d2 = {}
+        for name, g in (('port', g_port), ('jax', g_jax)):
+            d2[name] = ((g[:, :, :, None, :] - c) ** 2).sum(-1)
+        near = live & (np.abs(d2['port'] - r2) <= 1e-6 * r2)
+        assert not near.any(), (
+            f'{int(near.sum())} (grid point, keypoint) pairs lie within '
+            f'1e-6 of radius {radius}: float32 rounding decides them')
+        crossed = live & ((d2['port'] < r2) != (d2['jax'] < r2))
+        assert not crossed.any(), (
+            f'{int(crossed.sum())} (grid point, keypoint) pairs fall on '
+            f'different sides of radius {radius} for the two packages\' '
+            f'grid points (largest shift {shift} m)')
 
 
 def _random_boxes(rng, n, spread=20.0):

@@ -142,18 +142,67 @@ def test_voxel_backbone_matches_jax(residual):
 
 
 def test_voxel_backbone_refuses_host_rulebooks():
-    """Host-built rulebooks are not ported, in eval or in training; a
-    sparse layer in train mode runs (it raised before training was
-    ported)."""
-    bb = VoxelBackBone8x({}, 4, (16, 24, 40)).eval()
-    for module in (bb, bb.train()):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            module({'voxel_features': torch.zeros(1, 8, 4),
-                    'rb_subm1': torch.zeros(1, 8, 27, dtype=torch.int32)})
+    """Host-built rulebooks (the plan's ``rb_*`` keys), once refused, now
+    run, in eval and in training: the host branch's outputs equal the
+    device branch's (the same integer tables, the same kernels), and in
+    training the strided layers' input gradient takes their transposed
+    rulebooks, never the plain scatter-add. A sparse layer in train mode
+    runs (it raised before training was ported)."""
+    from lidardetection_tpu_torch.ops import sparse
+    from lidardetection_tpu_torch.ops.sparse_plan import (
+        backbone_plan, build_host_rulebooks,
+    )
+
+    grid = (16, 24, 40)
+    feats, coords, num = _voxel_table(3, grid)
+    # the host voxelizer hands the table sorted by key
+    st = sparse.from_unsorted(torch.from_numpy(feats), torch.from_numpy(coords),
+                              torch.from_numpy(num), (41, 24, 16))
+    device = {'voxel_features': st.features, 'voxel_coords': st.coords,
+              'num_voxels': st.num_voxels}
+    bb = VoxelBackBone8x({}, 4, grid)
+    for training in (False, True):
+        plan = backbone_plan({'BACKBONE_3D': {'NAME': 'VoxelBackBone8x'}},
+                             grid, 400, training=training)
+        tables = [build_host_rulebooks(plan, c.numpy(), int(n))
+                  for c, n in zip(st.coords, st.num_voxels)]
+        host = {**device, **{k: torch.from_numpy(np.stack([t[k] for t in tables]))
+                             for k in tables[0]}}
+        bb.train(training)
+        outs = []
+        for batch in (device, host):
+            feats_in = batch['voxel_features'].clone().requires_grad_(training)
+            out = bb({**batch, 'voxel_features': feats_in})
+            if training:
+                with pytest.MonkeyPatch.context() as mp:
+                    if batch is host:
+                        mp.setattr(sparse, '_conv_input_grad_plain', _refuse)
+                    out['encoded_spconv_tensor'].square().sum().backward()
+                outs.append((out, feats_in.grad))
+            else:
+                outs.append((out, None))
+        (want, want_grad), (got, got_grad) = outs
+        for key in ('encoded_spconv_tensor',):
+            torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)
+        for name, st_want in want['multi_scale_3d_features'].items():
+            st_got = got['multi_scale_3d_features'][name]
+            assert torch.equal(st_got.coords, st_want.coords), name
+            assert torch.equal(st_got.num_voxels.int(),
+                               st_want.num_voxels.int()), name
+            assert torch.equal(st_got.features, st_want.features), name
+        if training:
+            top = want_grad.abs().max()
+            assert top > 0
+            torch.testing.assert_close(got_grad, want_grad, rtol=0,
+                                       atol=1e-5 * float(top))
     out = bb.train().convs[0](
         torch.ones(1, 8, 4), torch.ones(1, 8, dtype=torch.bool),
         torch.arange(8, dtype=torch.int32).view(1, 8, 1).expand(1, 8, 27))
     assert out.requires_grad and tuple(out.shape) == (1, 8, 16)
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError('the plain scatter-add df was called')
 
 
 def _reduce(cfg):
@@ -224,6 +273,44 @@ def test_second_slice_matches_make_eval_step(jax_run):
                                rtol=0, atol=1e-4)
     np.testing.assert_allclose(got['pred_boxes'].numpy(), want['pred_boxes'],
                                rtol=0, atol=1e-4)
+
+
+def test_second_slice_on_the_jax_host_plan_batch(jax_run):
+    """The JAX package's eval loader with the model's host plan
+    (``build_dataloader(..., model_cfg=...)``, its tools/test.py path) on
+    the scenes of `jax_run`: the port reads the ``rb_*`` tables and gives
+    the outputs and detections that JAX's device branch gave on the
+    device-built batch (JAX's two branches agree bit for bit,
+    tests/test_sparse_host.py)."""
+    batch, params, stats, want_out, want = jax_run
+    cfg = _reduce(jax_cfg_from_yaml(CFG))
+    _, loader = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES,
+                                 batch_size=2, training=False, num_scenes=2,
+                                 seed=3, model_cfg=cfg.MODEL)
+    host = next(iter(loader))
+    assert {'rb_subm1', 'rb_down2', 'rb_down2_coords', 'rb_down2_num',
+            'rb_out'} <= set(host)
+    assert not any(k.endswith('_bwd') for k in host)
+    np.testing.assert_array_equal(host['voxel_coords'],
+                                  np.asarray(batch['voxel_coords']))
+    det = Detector(_reduce(cfg_from_yaml_file(CFG)), device='cpu',
+                   state_dict=flax_to_state_dict(params, stats))
+    tbatch = {k: torch.from_numpy(np.asarray(v)) for k, v in host.items()
+              if k.startswith('rb_') or k in ('voxels', 'voxel_coords',
+                                              'voxel_num_points', 'num_voxels')}
+    assert tbatch['rb_subm1'].dtype == tbatch['rb_down2_num'].dtype == torch.int32
+    out = det.forward(tbatch)
+    got = det.postprocess(out)
+    for key in ('encoded_spconv_tensor', 'spatial_features',
+                'batch_fused_preds'):
+        np.testing.assert_allclose(out[key].numpy(), want_out[key],
+                                   rtol=0, atol=1e-4, err_msg=key)
+    for key in ('num_preds', 'pred_mask', 'pred_labels'):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]),
+                                      err_msg=key)
+    for key in ('pred_scores', 'pred_boxes'):
+        np.testing.assert_allclose(got[key].numpy(), want[key], rtol=0,
+                                   atol=1e-4, err_msg=key)
 
 
 def test_second_predict_from_clouds(jax_run):

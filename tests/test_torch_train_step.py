@@ -28,7 +28,7 @@ from lidardetection_tpu.config import cfg_from_yaml_file as jax_cfg_from_yaml
 from lidardetection_tpu.datasets import build_dataloader
 from lidardetection_tpu.models import build_network as jax_build_network
 from lidardetection_tpu.parallel.train_step import device_batch, jit_init
-from lidardetection_tpu_torch.config import cfg_from_yaml_file
+from lidardetection_tpu_torch.config import cfg_from_yaml_file, dataset_info
 from lidardetection_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
 from lidardetection_tpu_torch.datasets.synthetic import (
     SyntheticDataset, SyntheticLoader,
@@ -273,8 +273,62 @@ def test_synthetic_training_set_and_make_batch():
     loader = SyntheticLoader(dataset, 2, trainer.make_batch, seed=0)
     assert len(loader) == 2
     batch = next(iter(loader))
-    assert set(batch) == set(KEYS)
+    # with the training plan's host rulebooks, transposed ones included
+    assert set(batch) == set(KEYS) | set(trainer.plan.batch_keys())
+    assert 'rb_down2_bwd' in batch and batch['rb_down2_bwd'].dtype == torch.int32
     assert tuple(batch['voxels'].shape) == (2, 2000, 5, 4)
     assert tuple(batch['gt_boxes'].shape) == (2, 16, 8)
     tb = trainer.step(batch)
     assert np.isfinite(float(tb['loss']))
+
+
+def test_strided_input_gradient_runs_on_the_transposed_rulebooks(monkeypatch):
+    """A SECOND step on the training plan never takes the plain scatter-add
+    for a strided layer's input gradient (K3 over ``rb_<name>_bwd``, its
+    plain version here); every gradient leaf is within 1e-5 of its largest
+    value of the same step on the device-built rulebooks, whose strided
+    layers take the scatter-add."""
+    from lidardetection_tpu_torch.ops import sparse
+
+    cfg = _reduce(cfg_from_yaml_file('tools/cfgs/kitti_models/second.yaml'),
+                  'second')
+    dataset = SyntheticDataset(('Car', 'Pedestrian', 'Cyclist'),
+                               dataset_info(cfg['DATA_CONFIG'])
+                               ['point_cloud_range'], num_scenes=2, seed=5,
+                               max_gt_boxes=16)
+    scenes = [dataset[i] for i in range(2)]
+    grads = []
+    plain_calls = []
+    real = sparse._conv_input_grad_plain
+
+    def counted(*args, **kwargs):
+        plain_calls.append(1)
+        return real(*args, **kwargs)
+
+    for host in (True, False):
+        trainer = Trainer(cfg, device='cpu', seed=1, total_steps=2)
+        batch = trainer.make_batch(scenes)
+        if host:
+            assert {'rb_down2_bwd', 'rb_down3_bwd', 'rb_down4_bwd',
+                    'rb_out_bwd'} <= set(batch)
+            monkeypatch.setattr(sparse, '_conv_input_grad_plain',
+                                _refuse_scatter_add)
+        else:
+            batch = {k: v for k, v in batch.items() if not k.startswith('rb_')}
+            monkeypatch.setattr(sparse, '_conv_input_grad_plain', counted)
+        loss, _ = trainer.model.loss(trainer.model(batch))
+        loss.backward()
+        grads.append({k: p.grad for k, p in trainer.model.named_parameters()})
+    assert len(plain_calls) == 4  # the device path: down2, down3, down4, out
+    n_sparse = 0
+    for key, want in grads[1].items():
+        top = float(want.abs().max())
+        assert top > 0, key
+        torch.testing.assert_close(grads[0][key], want, rtol=0,
+                                   atol=1e-5 * top, msg=key)
+        n_sparse += key.startswith('backbone_3d.')
+    assert n_sparse > 0
+
+
+def _refuse_scatter_add(*args, **kwargs):
+    raise AssertionError('a strided layer took the plain scatter-add df')

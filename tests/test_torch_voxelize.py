@@ -103,3 +103,43 @@ def test_build_batch_pads_raw_points_as_the_data_processor(max_points):
         assert batch['num_points'][i] == want['num_points']
     assert 'points' not in build_batch(clouds, PC_RANGE, vox.VOXEL_SIZE,
                                        vox.MAX_POINTS_PER_VOXEL, 4000)
+
+
+@pytest.mark.parametrize('case', ['voxel overflow', 'point overflow',
+                                  'out of range', 'empty cloud'])
+def test_native_voxelizer_equals_plain_and_jax(case):
+    """The host library's voxelizer (the default), the numpy plain version
+    and the JAX package's voxelize_np: equal tables, coords, counts and
+    voxel counts."""
+    from lidardetection_tpu_torch import native
+    from lidardetection_tpu_torch.ops.voxelize import voxelize_plain
+
+    points = _cloud(7)
+    voxel_size, max_points, max_voxels = (0.2, 0.2, 0.25), 5, 8000
+    if case == 'voxel overflow':
+        max_voxels = 700
+    elif case == 'point overflow':
+        voxel_size, max_points = (0.8, 0.8, 1.0), 3
+    elif case == 'out of range':  # every point beyond the grid, one inside
+        points = points[~mask_points_by_range(points, PC_RANGE)]
+        points = np.concatenate([points, [[1.0, 0.5, -2.0, 0.3]]]).astype(
+            np.float32)
+    else:
+        points = np.zeros((0, 4), np.float32)
+    got = voxelize_np(points, PC_RANGE, voxel_size, max_points, max_voxels)
+    with native.plain_host():
+        plain = voxelize_np(points, PC_RANGE, voxel_size, max_points,
+                            max_voxels)
+    want = jax_voxelize_np(points, PC_RANGE, voxel_size, max_points,
+                           max_voxels)
+    for other in (plain, want, voxelize_plain(points, PC_RANGE, voxel_size,
+                                              max_points, max_voxels)):
+        assert got[3] == other[3]
+        for g, w in zip(got[:3], other[:3]):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
+    n = got[3]
+    assert {'voxel overflow': n == max_voxels,
+            'point overflow': got[2].max() == max_points and n < max_voxels,
+            'out of range': n == 1,
+            'empty cloud': n == 0 and (got[1] == -1).all()}[case]
