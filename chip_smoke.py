@@ -1,5 +1,6 @@
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: PointPillar and
-SECOND, serving, training and evaluation; PV-RCNN serving and training.
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: PointPillar,
+SECOND and Part-A², serving, training and evaluation; PV-RCNN serving and
+training.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -113,6 +114,29 @@ Phases, each of which raises on failure (non-zero exit, no result line):
  18. one request of each detector and one training step of each trained
      detector under torch.profiler (idle share, top kernels), after every
      timed phase; one K2 call under it: one kernel, no memset.
+Part-A² (tools/cfgs/kitti_models/PartA2.yaml: UNetV2, the intra-part
+point head, RoI-aware pooling, the masked dense RCNN convolutions), run
+after the PV-RCNN phase of each kind:
+ - serving, bf16, 40000 voxels, POOL_SIZE 12: 3 requests with 28 K3
+   (UNetV2's 28 convolutions, 3 inverse) and 1 K2 checked per request,
+   latency and peak memory; K3 against its plain version at each of the 28
+   layers of a real request in bf16 and f32, and each layer's time; the
+   forward split by module, the proposal layer, the RoI point sample, the
+   two pools, the UNet's encoder and decoder and the RCNN convolutions and
+   FCs apart; one f32 request, kernels against plain versions on the card;
+ - training, B = 2, 16000 voxels, the host plan: 2 warm-up and 3 timed
+   steps with 55 K3 (28 forward; 27 df: 20 submanifold, 4 strided, 3
+   inverse over the paired ``rb_down<n>``), 28 K4 and 1 K2 checked per
+   step; the step split; K4 at each layer (bf16 and f32, B = 1 and 2) and
+   K3 at each of the step's 55 launches against their plain versions, with
+   times; the inverse and strided df on K3 against the scatter-add; two
+   identical steps leaf by leaf (reported); the plan per scan, host library
+   against numpy; one f32 step, kernels against plain versions on the
+   card, the same sampled RoIs, every leaf within 1e-3;
+ - evaluation on the bucketed eval plan (4 scenes at B = 2, 28 K3 and 1 K2
+   a batch), its detections equal to the unbucketed device-built path's;
+   the KITTI protocol native against numpy on its annos; one request and
+   one step under the profiler.
 The line before the last is the kernels' JSON, preceded by the card's name
 and power limit; the last line is the device JSON.
 """
@@ -128,10 +152,12 @@ import numpy as np
 CFG = 'tools/cfgs/kitti_models/pointpillar.yaml'
 CFG_SECOND = 'tools/cfgs/kitti_models/second.yaml'
 CFG_PVRCNN = 'tools/cfgs/kitti_models/pv_rcnn.yaml'
+CFG_PARTA2 = 'tools/cfgs/kitti_models/PartA2.yaml'
 SEED = 0
 N_REQUESTS = 3               # PointPillar
 N_REQUESTS_SECOND = 3
 N_REQUESTS_PVRCNN = 3
+N_REQUESTS_PARTA2 = 3
 TRAIN_BATCH = 4              # BATCH_SIZE_PER_GPU of pointpillar and second
 TRAIN_WARMUP, TRAIN_STEPS = 2, 3
 EVAL_SCENES, EVAL_BATCH = 4, 2  # the eval phase, both detectors
@@ -1080,14 +1106,32 @@ def pvrcnn_step_split(torch, trainer, batch):
     return split
 
 
+def dw_work(torch, f, rb, g, valid):
+    """K4's work at one layer (f, rb, g), counted on the live output rows
+    only: the live rows, the (row, offset) hits, and the bytes and FLOP of
+    its bound: each live row's k table entries, each input row that a hit
+    reads once, each live row's gradient once, the f32 dW written once."""
+    k, c_in, c_out = rb.shape[2], f.shape[2], g.shape[2]
+    hit = (rb >= 0) & (rb < f.shape[1]) & valid[..., None]
+    hits, live = int(hit.sum()), int(valid.sum())
+    flat = rb.long() + torch.arange(rb.shape[0], device=rb.device)[
+        :, None, None] * f.shape[1]
+    rows_read = int(torch.unique(flat[hit]).numel())
+    size = f.element_size()
+    n_bytes = (live * k * 4 + rows_read * c_in * size
+               + live * c_out * size + k * c_in * c_out * 4)
+    return live, hits, n_bytes, 2 * hits * c_in * c_out
+
+
 def record_weight_gradients(trainer, batch):
-    """One forward and backward of the SECOND trainer's model: the sparse
+    """One forward and backward of a trainer's model: the sparse
     layers' forward inputs (call order), the (f, rulebook, g) that each
     layer's backward hands to K4 (call order reversed to layer order) and
     the (f, rulebook, W, valid) of every K3 call of the step (12 forward,
     then 11 df in backward order: 7 submanifold, 4 strided over the
     training plan's transposed rulebooks)."""
     from lidardetection_tpu_torch.ops import sparse
+    from lidardetection_tpu_torch.parallel.train_step import step_draw
 
     calls, convs = [], []
     real, real_conv = sparse.rulebook_conv_dw, sparse.rulebook_conv
@@ -1103,7 +1147,9 @@ def record_weight_gradients(trainer, batch):
     def run():
         for p in trainer.model.parameters():
             p.grad = None
-        loss, _ = trainer.model.loss(trainer.model(batch))
+        draw = step_draw(trainer.seed, trainer.state.step,
+                         next(trainer.model.parameters()).device)
+        loss, _ = trainer.model.loss(trainer.model(batch, draw))
         loss.backward()
 
     sparse.rulebook_conv_dw, sparse.rulebook_conv = recorder, conv_recorder
@@ -1248,15 +1294,7 @@ def weight_gradient_phase(torch, trainer, batch, backward_ms):
                          'ops_ms': 0.0}
     for n, ((layer, _, valid, _), (f, rb, g)) in enumerate(zip(layers, calls), 1):
         k, c_in, c_out = layer.kernel.shape
-        hit = (rb >= 0) & (rb < f.shape[1]) & valid[..., None]
-        hits, live = int(hit.sum()), int(valid.sum())
-        flat = rb.long() + torch.arange(rb.shape[0], device='cuda')[
-            :, None, None] * f.shape[1]
-        rows_read = int(torch.unique(flat[hit]).numel())
-        size = f.element_size()
-        n_bytes = (live * k * 4 + rows_read * c_in * size
-                   + live * c_out * size + k * c_in * c_out * 4)
-        n_flop = 2 * hits * c_in * c_out
+        live, hits, n_bytes, n_flop = dw_work(torch, f, rb, g, valid)
         # the card's peak for the inputs' type, as for K3
         rate = BF16_FLOP_PER_S if f.dtype == torch.bfloat16 else F32_FLOP_PER_S
         n_splits = dw_split_plan(rb.shape[0] * rb.shape[1], k, c_in, c_out)
@@ -1710,7 +1748,7 @@ def compare_train_phase(torch, trainer, cfg_file, batch, wrappers):
 
 
 def reproducibility_phase(torch, trainer, batch):
-    """Two identical SECOND training steps from the same state on the same
+    """Two identical training steps from the same state on the same
     batch: every parameter, BatchNorm statistic and Adam moment after the
     step compared bit for bit. Where a leaf differs, the step is run again
     under ``torch.use_deterministic_algorithms(True, warn_only=True)`` and
@@ -1734,7 +1772,8 @@ def reproducibility_phase(torch, trainer, batch):
         trainer.step(batch)
         runs.append(leaves())
     differ = [k for k in runs[0] if not torch.equal(runs[0][k], runs[1][k])]
-    print(f'two identical SECOND steps: {len(runs[0]) - len(differ)} of '
+    print(f'two identical {trainer.cfg["MODEL"]["NAME"]} steps: '
+          f'{len(runs[0]) - len(differ)} of '
           f'{len(runs[0])} leaves bit-equal'
           + (f'; differ: {differ[:12]}' if differ else ''), flush=True)
     if differ:
@@ -1753,7 +1792,7 @@ def reproducibility_phase(torch, trainer, batch):
 
 
 def host_plan_phase(trainer):
-    """The host side at second.yaml's train cap, per scan of a training
+    """The host side at a config's train cap, per scan of a training
     batch: the voxelizer and the training plan's rulebook build, the host
     library against the numpy plain version (equal arrays), median times."""
     from lidardetection_tpu_torch import native
@@ -1793,7 +1832,8 @@ def host_plan_phase(trainer):
             rb_n[k].dtype == rb_p[k].dtype and np.array_equal(rb_n[k], rb_p[k])
             for k in rb_n), f'scan {i}: native and numpy rulebooks equal')
     med = {k: float(np.median(v)) for k, v in times.items()}
-    print(f'host side per scan at the train cap of {trainer.max_voxels} '
+    print(f'{trainer.cfg["MODEL"]["NAME"]} host side per scan at the train '
+          f'cap of {trainer.max_voxels} '
           f'({TRAIN_BATCH} scans, {len(plan.ops)} plan ops, '
           f'{len(plan.batch_keys())} tables; native and numpy bit-equal), '
           'median ms: ' + ', '.join(f'{k} {v:.2f}' for k, v in med.items()),
@@ -1801,7 +1841,7 @@ def host_plan_phase(trainer):
 
 
 def bucketed_eval_phase(torch, cfg_file):
-    """SECOND's eval on the bucketed host tables (the eval phase's path)
+    """A config's eval on the bucketed host tables (the eval phase's path)
     against the unbucketed device-built path on the same scenes, weights
     and eval step: the same detections, equal tensors."""
     from lidardetection_tpu_torch.config import cfg_from_yaml_file, dataset_info
@@ -1914,8 +1954,9 @@ def eval_phase(torch, cfg_file, per_batch):
     check(all(np.isfinite(a['boxes_lidar']).all() and a['boxes_lidar'].shape
               == (len(a['name']), 7) for a in annos), f'{name} eval: finite boxes')
     check(min(live) > 0 and sum(kept) > 0, f'{name} eval: live candidates')
-    check(sorted(recall) == [f'recall/rcnn_{t}'
-                             for t in post.RECALL_THRESH_LIST]
+    stages = ('rcnn', 'roi') if cfg.MODEL.get('ROI_HEAD') else ('rcnn',)
+    check(sorted(recall) == sorted(f'recall/{k}_{t}' for k in stages
+                                   for t in post.RECALL_THRESH_LIST)
           and all(0 <= v <= 1 for v in recall.values()), f'{name} eval: recall')
     check(result['sec_per_example'] > 0 and 'Car_3d/moderate_R40' in result,
           f'{name} eval: the protocol ran')
@@ -2022,6 +2063,302 @@ def precise_bn_phase(torch):
           f'(tolerance 1e-3)', flush=True)
 
 
+def unet_kernel_phase(torch, det):
+    """K3 against its plain version at the 28 convolutions of a Part-A²
+    request (UNetV2: the encoder's 12, the decoder's 16, three of them
+    inverse), on the rulebooks and activations of a real voxelized scan,
+    in bf16 and f32 (within 1e-4 of the largest output), then each
+    layer's time at the request's shape and dtype."""
+    from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
+        rulebook_conv, rulebook_conv_plain,
+    )
+
+    batch = det.make_batch(make_clouds(det, 1, SEED + 210))
+    records, _ = record_sparse_layers(det.model, lambda: det.forward(batch))
+    check(len(records) == 28, f'28 sparse layers in a forward ({len(records)})')
+    err = 0.0
+    for n, (layer, f, valid, rb) in enumerate(records, 1):
+        for dtype in (torch.bfloat16, torch.float32):
+            fd = f.to(dtype).contiguous()
+            wd = layer.kernel.detach().to(dtype).contiguous()
+            got = rulebook_conv(fd, rb.contiguous(), wd, valid.contiguous())
+            want = rulebook_conv_plain(fd, rb, wd, valid)
+            torch.cuda.synchronize()
+            e, top = float((got - want).abs().max()), float(want.abs().max())
+            check(top > 0 and e <= 1e-4 * top and bool(torch.isfinite(got).all()),
+                  f'UNet layer {n} {dtype}: max error {e} against max|want| {top}')
+            err = max(err, e)
+    # the decoder's strided layers are its three inverse convolutions
+    names = [f'{n} (inverse)' if n > 12 and not layer.subm else f'{n}'
+             for n, (layer, *_) in enumerate(records, 1)]
+    rows = [conv_timing(torch, name, 'Part-A2 B=1',
+                        f.to(layer.dtype or torch.float32), rb,
+                        layer.kernel.detach().to(layer.dtype or torch.float32),
+                        valid)
+            for name, (layer, f, valid, rb) in zip(names, records)]
+    total = {key: sum(r[key] for r in rows)
+             for key in ('ms', 'plain_ms', 'bound_ms')}
+    print(f'rulebook_conv, the 28 launches of a Part-A2 request (bf16 and f32 '
+          f'within 1e-4 * max|want| at every layer, largest error {err:.3g}): '
+          f'device {total["ms"]:.4f} ms (encoder 12: '
+          f'{sum(r["ms"] for r in rows[:12]):.4f}, decoder 16: '
+          f'{sum(r["ms"] for r in rows[12:]):.4f}), plain '
+          f'{total["plain_ms"]:.4f} ms, bound {total["bound_ms"]:.4f} ms',
+          flush=True)
+    return {'per_request_ms': total['ms'], 'per_request_plain_ms':
+            total['plain_ms'], 'per_request_bound_ms': total['bound_ms'],
+            'max_abs_err': err, 'layers': rows}
+
+
+def parta2_split(torch, det, points, repeats=3):
+    """A Part-A² request's forward by module (``forward_split``, with the
+    proposal layer, the RoI point sample and the two pools apart), then
+    inside it the UNet's encoder and decoder (split where the first UR
+    block starts) and the RoI head's masked dense convolutions and its FCs,
+    the device drained around each, median of `repeats`."""
+    from lidardetection_tpu_torch.models.roi_heads import (
+        parta2_head, roi_head_utils,
+    )
+
+    med = forward_split(torch, det, points, functions=(
+        (roi_head_utils, 'proposal_layer', ['proposal layer']),
+        (parta2_head, 'roi_point_sample', ['RoI point sample']),
+        (parta2_head, 'roiaware_pool3d',
+         ['part pool (avg)', 'feature pool (max)'])))
+    unet, head = det.model.backbone_3d, det.model.roi_head
+    stamps, spans, hooks = {}, {}, []
+
+    def stamp(name):
+        def hook(*_):
+            torch.cuda.synchronize()
+            stamps[name] = time.perf_counter()
+        return hook
+
+    def summed(name, module):
+        def before(*_):
+            torch.cuda.synchronize()
+            stamps[name + ' start'] = time.perf_counter()
+
+        def after(*_):
+            torch.cuda.synchronize()
+            spans[name] = spans.get(name, 0.0) + time.perf_counter() \
+                - stamps[name + ' start']
+        hooks.extend([module.register_forward_pre_hook(before),
+                      module.register_forward_hook(after)])
+
+    hooks += [unet.register_forward_pre_hook(stamp('unet start')),
+              unet.blocks[0].register_forward_pre_hook(stamp('decoder start')),
+              unet.register_forward_hook(stamp('unet end'))]
+    for conv in head.sub_convs:
+        summed('RCNN convs', conv)
+    for module in (*head.dense, *head.bn, *head.fc_heads):
+        summed('RCNN FCs', module)
+    runs = []
+    try:
+        for _ in range(repeats):
+            spans.clear()
+            det.forward(det.make_batch([points]))
+            runs.append({'UNet encoder': stamps['decoder start']
+                         - stamps['unet start'],
+                         'UNet decoder': stamps['unet end']
+                         - stamps['decoder start'], **spans})
+    finally:
+        for hook in hooks:
+            hook.remove()
+    inner = {k: float(np.median([r[k] for r in runs])) * 1e3 for k in runs[0]}
+    print('Part-A2 forward inside the modules, ms (device drained around '
+          'each): ' + ', '.join(f'{k} {v:.2f}' for k, v in inner.items())
+          + f'; the RoI head {med["roi_head"]:.2f} = proposal layer '
+          f'{med["proposal layer"]:.2f} + point sample '
+          f'{med["RoI point sample"]:.2f} + pools '
+          f'{med["part pool (avg)"] + med["feature pool (max)"]:.2f} + convs '
+          f'{inner["RCNN convs"]:.2f} + FCs {inner["RCNN FCs"]:.2f} + the rest',
+          flush=True)
+    return {**med, **inner}
+
+
+def avg_pool_cost(torch, det, points):
+    """The avg pool of a real request (Part-A²'s part pool) as the port
+    computes it, summed cell by cell in the rows' order (deterministic),
+    against the simpler ``index_add_`` of the rows and of their counts,
+    which adds in no fixed order on the card: agreement, and the time of
+    each as a caller sees it, the forward alone and with its backward."""
+    from lidardetection_tpu_torch.models.roi_heads import parta2_head
+    from lidardetection_tpu_torch.ops.roi_pool import pool_cells, roiaware_pool3d
+
+    calls = []
+    with recorded(parta2_head, 'roiaware_pool3d', calls):
+        det.forward(det.make_batch([points]))
+    (args, _, _), = [c for c in calls if c[0][5] == 'avg']
+    # plain copies: the request's are inference tensors, which autograd
+    # does not save for a backward
+    pts, feats, rois = (t.clone() for t in args[:3])
+    sample, size = tuple(t.clone() for t in args[3]), args[4]
+
+    def index_added(feats):
+        ox, oy, oz = size
+        idx, _ = sample
+        b, r, n = idx.shape
+        c, rows = feats.shape[-1], r * ox * oy * oz + 1
+        key = (pool_cells(pts, rois, sample, size) + torch.arange(
+            b, device=idx.device)[:, None] * rows).reshape(-1)
+        g = torch.gather(feats, 1, idx.reshape(b, r * n)[..., None].expand(
+            -1, -1, c)).reshape(b * r * n, c)
+        total = g.new_zeros((b * rows, c)).index_add(0, key, g)
+        count = g.new_zeros(b * rows).index_add_(0, key, torch.ones_like(
+            key, dtype=g.dtype))
+        return (total / count.clamp(min=1)[:, None]).reshape(b, rows, c)[
+            :, :-1].reshape(b, r, ox, oy, oz, c)
+
+    def ported(feats):
+        return roiaware_pool3d(pts, feats, rois, sample, size, 'avg')
+
+    want, got = ported(feats), index_added(feats)
+    torch.cuda.synchronize()
+    e, top = float((got - want).abs().max()), float(want.abs().max())
+    check(top > 0 and e <= 1e-5 * top,
+          f'avg pool: index_add_ against the port max error {e} (max {top})')
+    ct = torch.randn_like(want)
+    row = {}
+    for name, fn in (('sorted', ported), ('index_add', index_added)):
+        leaf = feats.detach().clone().requires_grad_()
+        row[f'{name}_ms'] = cuda_ms(lambda: fn(feats), torch, queued=False)
+        row[f'{name}_with_backward_ms'] = cuda_ms(
+            lambda: torch.autograd.grad((fn(leaf) * ct).sum(), leaf),
+            torch, queued=False)
+    print(f'avg pool of a Part-A2 request ({feats.shape[1]} rows of '
+          f'{feats.shape[2]} channels, {sample[0].shape[1]} RoIs x '
+          f'{sample[0].shape[2]} samples): index_add_ within {e:.3g} of the '
+          f'port (max {top:.3g}); the port (sorted, deterministic) '
+          f'{row["sorted_ms"]:.4f} ms, with backward '
+          f'{row["sorted_with_backward_ms"]:.4f} ms; index_add_ '
+          f'{row["index_add_ms"]:.4f} ms, with backward '
+          f'{row["index_add_with_backward_ms"]:.4f} ms (as a caller sees it)',
+          flush=True)
+    return row
+
+
+def parta2_step_split(torch, trainer, batch):
+    """The Part-A² step split, with the proposal layer (its NMS apart), the
+    three target assigners, the RoI point sample and the pools timed inside
+    the forward."""
+    from lidardetection_tpu_torch.models.dense_heads import (
+        point_head, target_assigner,
+    )
+    from lidardetection_tpu_torch.models.roi_heads import (
+        parta2_head, roi_head_utils,
+    )
+
+    split = step_split(torch, trainer, batch, functions=(
+        (target_assigner, 'assign_targets', 'anchor targets'),
+        (point_head, 'assign_point_targets', 'point targets'),
+        (roi_head_utils, 'proposal_layer', 'proposal layer'),
+        (roi_head_utils, 'nms_bev_batched', 'proposal NMS'),
+        (roi_head_utils, 'assign_roi_targets', 'RoI targets'),
+        (parta2_head, 'roi_point_sample', 'RoI point sample'),
+        (parta2_head, 'roiaware_pool3d', 'pools')))
+    step = split['forward'] + split['backward'] + split['optimizer']
+    print(f'Part-A2 step: {step:.2f} ms split; the proposal layer '
+          f'{split["proposal layer"]:.2f} (its NMS {split["proposal NMS"]:.2f}), '
+          f'the targets {split["anchor targets"] + split["point targets"] + split["RoI targets"]:.2f}, '
+          f'the point sample {split["RoI point sample"]:.2f} and the pools '
+          f'{split["pools"]:.2f} ms (forward)', flush=True)
+    return split
+
+
+def unet_gradient_phase(torch, trainer, batch):
+    """At the shapes of a full-width Part-A² training step (B = 2, the
+    training plan): K4 against its plain version at each of the 28 layers'
+    (f, rulebook, g) in bf16 and f32, B = 1 and B = 2, and its time; K3
+    against its plain version at each of the step's 55 launches (28
+    forward, 27 df) and its time; each inverse convolution's df (K3 over
+    the paired strided layer's forward rulebook ``rb_down<n>``, W[k]^T)
+    and each strided layer's df (K3 over ``rb_<name>_bwd``) against the
+    plain scatter-add."""
+    from lidardetection_tpu_torch.ops import sparse
+    from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
+        rulebook_conv, rulebook_conv_dw, rulebook_conv_dw_plain,
+    )
+
+    layers, calls, convs = record_weight_gradients(trainer, batch)
+    check(len(layers) == len(calls) == 28 and len(convs) == 28 + 27,
+          f'28 sparse layers, 28 weight gradients and 55 K3 calls '
+          f'({len(layers)}, {len(calls)}, {len(convs)})')
+    dfs = convs[28:]
+    # the inverse convs' df over rb_down<n>, the strided layers' over rb_*_bwd
+    pairs = [(f'inverse {n}', batch[f'rb_down{n}'], f'rb_inv{n}')
+             for n in (4, 3, 2)] + \
+        [(f'strided {name}', batch[f'rb_{name}_bwd'], f'rb_{name}')
+         for name in ('down2', 'down3', 'down4', 'out')]
+    for what, rb_t, fwd_name in pairs:
+        (g, _, wb, in_valid), = [c for c in dfs
+                                 if c[1].data_ptr() == rb_t.data_ptr()]
+        got = rulebook_conv(g, rb_t, wb, in_valid)
+        want = sparse._conv_input_grad_plain(
+            g, batch[fwd_name], wb.transpose(1, 2), rb_t.shape[1]) \
+            * in_valid[..., None]
+        torch.cuda.synchronize()
+        e, top = float((got - want).abs().max()), float(want.abs().max())
+        print(f'{what} df ({str(g.dtype)[6:]}, V {rb_t.shape[1]} <- '
+              f'{g.shape[1]}, K={wb.shape[0]}): max|K3 - scatter-add over '
+              f'{fwd_name}| = {e:.3g} (max|want| {top:.3g}, tolerance 1e-4 * '
+              f'max)', flush=True)
+        check(top > 0 and e <= 1e-4 * top, f'{what} df on K3')
+
+    err, shapes = 0.0, []
+    b_step = batch['voxels'].shape[0]
+    for n, ((layer, _, valid, _), (f, rb, g)) in enumerate(zip(layers, calls), 1):
+        check((rb.shape[2], f.shape[2], g.shape[2]) == tuple(layer.kernel.shape),
+              f'Part-A2 layer {n}: the recorded gradient belongs to it')
+        for dtype in (torch.bfloat16, torch.float32):
+            fd, gd = f.to(dtype), g.to(dtype)
+            for b in (1, b_step):
+                args = (fd[:b].contiguous(), rb[:b].contiguous(),
+                        gd[:b].contiguous())
+                got = rulebook_conv_dw(*args)
+                want = rulebook_conv_dw_plain(*args)
+                torch.cuda.synchronize()
+                e, top = float((got - want).abs().max()), float(want.abs().max())
+                check(top > 0 and e <= 1e-4 * top and bool(torch.isfinite(got).all()),
+                      f'rulebook_conv_dw Part-A2 layer {n} B={b} {dtype}: max '
+                      f'error {e} against max|want| {top}')
+                err = max(err, e)
+        k, c_in, c_out = layer.kernel.shape
+        live, hits, n_bytes, n_flop = dw_work(torch, f, rb, g, valid)
+        rate = BF16_FLOP_PER_S if f.dtype == torch.bfloat16 else F32_FLOP_PER_S
+        row = {'layer': n, 'K': k, 'C_in': c_in, 'C_out': c_out,
+               'live_rows': live, 'hits': hits, 'bytes': n_bytes,
+               'ms': cuda_ms(lambda: rulebook_conv_dw(f, rb, g), torch),
+               'plain_ms': cuda_ms(lambda: rulebook_conv_dw_plain(f, rb, g),
+                                   torch, iters=5, warmup=1)}
+        row['bound_ms'], row['bound_by'] = bound_ms(n_bytes, n_flop, rate)
+        shapes.append(row)
+    k4 = {key: sum(r[key] for r in shapes) for key in ('ms', 'plain_ms',
+                                                       'bound_ms')}
+    print(f'rulebook_conv_dw, the 28 launches of a Part-A2 step (B={b_step}; '
+          f'bf16 and f32, B=1 and B={b_step} within 1e-4 * max|want| at every '
+          f'layer, largest error {err:.3g}): device {k4["ms"]:.4f} ms, plain '
+          f'{k4["plain_ms"]:.4f} ms, bound {k4["bound_ms"]:.4f} ms; per layer '
+          + ', '.join(f'{r["layer"]}:{r["ms"]:.4f}' for r in shapes), flush=True)
+
+    names = [f'forward {n}' for n in range(1, 29)] + \
+        [f'df {n}' for n in range(1, 28)]
+    rows = [conv_timing(torch, name, f'Part-A2 step B={f.shape[0]}', f, rb, w,
+                        valid) for name, (f, rb, w, valid) in zip(names, convs)]
+    k3 = {key: sum(r[key] for r in rows) for key in ('ms', 'plain_ms',
+                                                     'bound_ms')}
+    print(f'rulebook_conv, the 55 launches of a Part-A2 step (B={b_step}): '
+          f'device {k3["ms"]:.4f} ms (28 forward '
+          f'{sum(r["ms"] for r in rows[:28]):.4f}, 27 df '
+          f'{sum(r["ms"] for r in rows[28:]):.4f}), plain '
+          f'{k3["plain_ms"]:.4f} ms, bound {k3["bound_ms"]:.4f} ms', flush=True)
+    return ({'per_step_ms': k4['ms'], 'per_step_plain_ms': k4['plain_ms'],
+             'per_step_bound_ms': k4['bound_ms'], 'max_abs_err': err,
+             'layers': shapes},
+            {'per_step_ms': k3['ms'], 'per_step_plain_ms': k3['plain_ms'],
+             'per_step_bound_ms': k3['bound_ms'], 'step_layers': rows})
+
+
 def main():
     import torch
 
@@ -2112,6 +2449,20 @@ def main():
     profiled.append((det, clouds[0]))
     del det
 
+    print('== Part-A2 ==', flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    det, clouds, launches_parta2 = served(
+        CFG_PARTA2, N_REQUESTS_PARTA2, dict(zip(wrappers, (0, 1, 28, 0, 0))),
+        None)
+    print(f'Part-A2 serving peak memory {torch.cuda.max_memory_allocated() / 2 ** 20:.0f} '
+          'MiB (warm-up and timed requests)', flush=True)
+    k3_parta2 = unet_kernel_phase(torch, det)
+    parta2_split(torch, det, clouds[0])
+    avg_pool_cost(torch, det, clouds[0])
+    compare_plain_phase(torch, det, CFG_PARTA2, clouds[0], wrappers)
+    profiled.append((det, clouds[0]))
+    del det
+
     def trained(cfg_file, seed, per_step, earlier, schedule_steps=None):
         """Trainer at full width, its batches, and the launch counts of
         the timed steps of the training main path. The one-cycle schedule
@@ -2161,6 +2512,24 @@ def main():
     trainer_pvrcnn, batch_pvrcnn = trainer, batches[-1]
     del trainer, batches
 
+    print('== Part-A2 training ==', flush=True)
+    # 28 K3 forward, 27 df (7 encoder and 13 decoder submanifold, 4
+    # strided, 3 inverse), 28 K4, 1 K2; a run's first learning rate, as
+    # for PV-RCNN
+    trainer, batches, launches_train_parta2 = trained(
+        CFG_PARTA2, SEED + 800, dict(zip(wrappers, (0, 1, 28 + 27, 28, 0))),
+        None, schedule_steps=1000)
+    split = parta2_step_split(torch, trainer, batches[-1])
+    k4_parta2, k3_parta2_step = unet_gradient_phase(torch, trainer, batches[-1])
+    print(f'Part-A2 step: K3 {k3_parta2_step["per_step_ms"]:.4f} ms and K4 '
+          f'{k4_parta2["per_step_ms"]:.4f} ms of the {split["backward"]:.2f} ms '
+          'backward and the forward', flush=True)
+    reproducibility_phase(torch, trainer, batches[-1])
+    host_plan_phase(trainer)
+    compare_train_phase(torch, trainer, CFG_PARTA2, batches[-1], wrappers)
+    trainer_parta2, batch_parta2 = trainer, batches[-1]
+    del trainer, batches
+
     print('== evaluation ==', flush=True)
     launches_eval, annos, dataset = eval_phase(
         torch, CFG, dict(zip(wrappers, (1, 1, 0, 0, 0))))
@@ -2169,6 +2538,10 @@ def main():
         torch, CFG_SECOND, dict(zip(wrappers, (0, 1, 12, 0, 0))))
     evals['SECONDNet'] = (dataset, annos)
     bucketed_eval_phase(torch, CFG_SECOND)
+    launches_eval_parta2, annos, dataset = eval_phase(
+        torch, CFG_PARTA2, dict(zip(wrappers, (0, 1, 28, 0, 0))))
+    evals['PartA2Net'] = (dataset, annos)
+    bucketed_eval_phase(torch, CFG_PARTA2)
     protocol_phase(evals)
     precise_bn_phase(torch)
 
@@ -2178,18 +2551,32 @@ def main():
         profile_request(torch, det, points)
     for each, batch in ((trainer_pillar, batch_pillar),
                         (trainer_second, batch_second),
-                        (trainer_pvrcnn, batch_pvrcnn)):
+                        (trainer_pvrcnn, batch_pvrcnn),
+                        (trainer_parta2, batch_parta2)):
         profile_run(torch, f'{each.cfg["MODEL"]["NAME"]} training step',
                     lambda: each.step(batch))
 
-    # launches: the sum over the eight main paths' runs, each counted from 0
+    # launches: the sum over the eleven main paths' runs, each counted from 0
     runs = {'PointPillar serving': launches, 'SECONDNet serving': launches_second,
             'PVRCNN serving': launches_pvrcnn,
+            'PartA2Net serving': launches_parta2,
             'PointPillar training': launches_train,
             'SECONDNet training': launches_train_second,
             'PVRCNN training': launches_train_pvrcnn,
+            'PartA2Net training': launches_train_parta2,
             'PointPillar eval': launches_eval,
-            'SECONDNet eval': launches_eval_second}
+            'SECONDNet eval': launches_eval_second,
+            'PartA2Net eval': launches_eval_parta2}
+    # Part-A²'s per-layer rows on a line of their own, its totals in the
+    # kernels line
+    parta2_rows = {'K3 request': k3_parta2.pop('layers'),
+                   'K3 step': k3_parta2_step.pop('step_layers'),
+                   'K4 step': k4_parta2.pop('layers')}
+    print(json.dumps({'parta2_layers': parta2_rows}), flush=True)
+    k3['parta2'] = {**k3_parta2, **k3_parta2_step}
+    k4['parta2'] = k4_parta2
+    k3['max_abs_err'] = max(k3['max_abs_err'], k3_parta2['max_abs_err'])
+    k4['max_abs_err'] = max(k4['max_abs_err'], k4_parta2['max_abs_err'])
     kernels = [k1, k2, k3, k4, k5]
     for k in kernels:
         k['launches'] = sum(run.get(k['name'], 0) for run in runs.values())

@@ -87,7 +87,8 @@ def voxel_processor_cfg(data_cfg):
 def raw_point_capacity(cfg):
     """DATA_CONFIG.MAX_POINTS when the model reads the raw points (a PFE,
     PV-RCNN's VSA: ``points`` and ``num_points`` padded to it, as the JAX
-    package's data processor pads them), else None."""
+    package's data processor pads them), else None: Part-A²'s point head
+    reads the UNet's voxel centres, not the raw points."""
     if not cfg['MODEL'].get('PFE'):
         return None
     return int(cfg['DATA_CONFIG']['MAX_POINTS'])

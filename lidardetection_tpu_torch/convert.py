@@ -1,5 +1,5 @@
-"""flax variables of the JAX PointPillar, SECOND or PV-RCNN -> this
-package's ``state_dict``.
+"""flax variables of the JAX PointPillar, SECOND, PV-RCNN or Part-A² ->
+this package's ``state_dict``.
 
 Input: the flax ``params`` and ``batch_stats`` trees as nested dicts of
 numpy arrays (``jax.device_get`` of the JAX package's variables); no JAX is
@@ -8,17 +8,20 @@ needed here. Names map one to one except:
   * ``ConvBNReLU_<n>`` (creation order in BaseBEVBackbone) -> ``units.<n>``,
     its ``MaskedBatchNorm_0`` -> ``bn``;
   * ``SparseConvLayer_<n>`` -> ``convs.<n>`` and ``SparseBasicBlock_<n>`` ->
-    ``blocks.<n>`` (creation order in VoxelBackBone8x and inside a block);
+    ``blocks.<n>`` (creation order in VoxelBackBone8x or UNetV2 and inside
+    a block);
     a sparse layer's ``kernel`` (K, C_in, C_out) keeps its name and layout;
     its ``MaskedBatchNorm_0`` -> ``bn``;
   * the point-based modules: ``PointnetSAModuleMSG_<n>`` -> ``sa_layers.<n>``,
     ``SharedMLP_<n>`` -> ``mlps.<n>``, ``FCHead_<n>`` -> ``fc_heads.<n>``,
     ``pre_proj_<i>`` / ``xyz_proj_<i>`` / ``pre_bn_<i>`` -> ``pre_proj.<i>`` /
     ``xyz_proj.<i>`` / ``pre_bn.<i>``, ``RoIGridPool_0`` -> ``roi_grid_pool``,
-    ``FCLayers_0`` -> ``fc_layers``; inside them ``Dense_<n>`` ->
-    ``dense.<n>`` (its ``kernel`` (in, out) keeps its layout) and
-    ``MaskedBatchNorm_<n>`` -> ``bn.<n>``;
-  * ``Conv_0/kernel`` HWIO -> ``weight`` OIHW;
+    ``FCLayers_0`` -> ``fc_layers``, ``MaskedDenseSubMConv3d_<n>`` ->
+    ``sub_convs.<n>``; inside them ``Dense_<n>`` -> ``dense.<n>`` (its
+    ``kernel`` (in, out) keeps its layout) and ``MaskedBatchNorm_<n>`` ->
+    ``bn.<n>`` (a module with one BatchNorm: ``bn``);
+  * ``Conv_0/kernel`` HWIO -> ``weight`` OIHW, and (X, Y, Z, I, O) ->
+    ``weight`` (O, I, X, Y, Z) for a three-dimensional one;
   * ``ConvTranspose_0/kernel`` HWIO -> flipped in both spatial axes, then
     ``weight`` (I, O, H, W): flax's transposed convolution does not flip
     its kernel and PyTorch's does.
@@ -43,11 +46,16 @@ def _flatten(tree, prefix=()):
 _SCOPES = {'ConvBNReLU': 'units', 'SparseConvLayer': 'convs',
            'SparseBasicBlock': 'blocks', 'PointnetSAModuleMSG': 'sa_layers',
            'SharedMLP': 'mlps', 'FCHead': 'fc_heads', 'Dense': 'dense',
-           'pre_proj': 'pre_proj', 'xyz_proj': 'xyz_proj', 'pre_bn': 'pre_bn'}
+           'pre_proj': 'pre_proj', 'xyz_proj': 'xyz_proj', 'pre_bn': 'pre_bn',
+           'MaskedDenseSubMConv3d': 'sub_convs'}
 _SINGLE = {'RoIGridPool_0': 'roi_grid_pool', 'FCLayers_0': 'fc_layers'}
 # Dense + BatchNorm stacks: their BatchNorms are the list `bn`, elsewhere a
 # module's one BatchNorm is `bn`
-_STACKS = ('pfe', 'roi_head', 'SharedMLP_', 'FCLayers_', 'FCHead_')
+_STACKS = ('pfe', 'roi_head', 'SharedMLP_', 'FCLayers_', 'FCHead_',
+           'cls_layers', 'part_reg_layers')
+# a flax convolution kernel (*spatial, I, O) -> PyTorch's (O, I, *spatial)
+_TO_TORCH = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+_TO_FLAX = {4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}
 
 
 def _convert(path, value):
@@ -65,7 +73,8 @@ def _convert(path, value):
             parts.append(key)
     scope, leaf = (path[-2] if len(path) > 1 else ''), path[-1]
     if scope == 'Conv_0' and leaf == 'kernel':
-        return '.'.join(parts + ['weight']), value.transpose(3, 2, 0, 1)
+        return '.'.join(parts + ['weight']), value.transpose(
+            _TO_TORCH[value.ndim])
     if scope == 'ConvTranspose_0' and leaf == 'kernel':
         return ('.'.join(parts + ['weight']),
                 value[::-1, ::-1].transpose(2, 3, 0, 1))
@@ -99,7 +108,7 @@ def state_dict_to_flax(state, *trees):
             leaf = state[name].detach().cpu().numpy()
             scope = path[-2] if len(path) > 1 else ''
             if scope == 'Conv_0' and key == 'kernel':
-                leaf = leaf.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+                leaf = leaf.transpose(_TO_FLAX[leaf.ndim])  # -> (*spatial, I, O)
             elif scope == 'ConvTranspose_0' and key == 'kernel':
                 leaf = leaf.transpose(2, 3, 0, 1)[::-1, ::-1]
             out[key] = np.ascontiguousarray(leaf)

@@ -32,6 +32,70 @@ from torch import nn
 from ...ops import sparse
 from ..layers import MaskedBatchNorm, lecun_normal_
 
+# the strided stages of the encoder: name, padding (kernel 3, stride 2)
+STAGES = (('x_conv2', (1, 1, 1)), ('x_conv3', (1, 1, 1)),
+          ('x_conv4', (0, 1, 1)))
+
+
+def encode(batch, convs, blocks, spatial_shape, capacities, last_pad=0):
+    """VoxelBackBone8x's encoder, shared with UNetV2's: the layers come from
+    the iterators ``convs`` and ``blocks`` in creation order (``blocks``
+    None: plain submanifold layers, else one SparseBasicBlock a layer).
+    Returns the four stages' SparseTensors, each stage's submanifold
+    rulebook, and conv_out's SparseTensor (padding ``last_pad``)."""
+    feats = batch['voxel_features']
+    cap = feats.shape[1]
+    host = 'rb_subm1' in batch
+    if host:  # the host voxelizer emits the table sorted
+        st = sparse.SparseTensor(feats, batch['voxel_coords'],
+                                 batch['num_voxels'], spatial_shape)
+    else:
+        st = sparse.from_unsorted(feats, batch['voxel_coords'],
+                                  batch['num_voxels'], spatial_shape)
+
+    def subm_stack(st, n_blocks, name, first_plain=False):
+        rule = batch[f'rb_{name}'] if host \
+            else sparse.build_subm_rulebook(st, (3, 3, 3))
+        vm, f = st.valid_mask, st.features
+        if first_plain:
+            f = next(convs)(f, vm, rule)
+        for _ in range(n_blocks):
+            f = next(convs if blocks is None else blocks)(f, vm, rule)
+        return st._replace(features=f), rule
+
+    def downsample(st, stride, padding, kernel, stage, name):
+        if host:
+            out_coords = batch[f'rb_{name}_coords']
+            out_num = batch[f'rb_{name}_num']
+            rule = batch[f'rb_{name}']
+            out_shape = tuple(
+                (n + 2 * p - (k - 1) - 1) // s + 1 for n, k, s, p in
+                zip(st.spatial_shape, kernel, stride, padding))
+        else:
+            capacity = cap if capacities is None else int(capacities[stage])
+            out_coords, out_num, out_shape = sparse.build_strided_out_coords(
+                st, kernel, stride, padding, capacity)
+            rule = sparse.build_strided_rulebook(
+                st, out_coords, out_shape, kernel, stride, padding)
+        # the training plan's transposed rulebook, over the input table
+        rb_bwd = batch.get(f'rb_{name}_bwd') if host else None
+        f = next(convs)(st.features, out_coords[..., 0] >= 0, rule,
+                        rb_bwd=rb_bwd, in_valid=st.valid_mask)
+        return sparse.SparseTensor(f, out_coords, out_num, out_shape)
+
+    stages, rules = {}, {}
+    st, rules['x_conv1'] = subm_stack(st, 1, 'subm1', first_plain=True)
+    stages['x_conv1'] = st
+    for stage, (name, padding) in enumerate(STAGES):
+        st = downsample(st, (2, 2, 2), padding, (3, 3, 3), stage,
+                        f'down{stage + 2}')
+        st, rules[name] = subm_stack(st, 2, f'subm{stage + 2}')
+        stages[name] = st
+    # conv_out: z-compression (3,1,1)/(2,1,1)
+    st_out = downsample(st, (2, 1, 1), (last_pad,) * 3, (3, 1, 1), 3, 'out')
+    return stages, rules, st_out
+
+
 class SparseConvLayer(nn.Module):
     """One sparse convolution over a prebuilt rulebook + BN + ReLU.
 
@@ -81,6 +145,32 @@ class SparseBasicBlock(nn.Module):
         return out * valid_mask[..., None].to(out.dtype)
 
 
+def encoder_layers(input_channels, channels, residual, **kw):
+    """The encoder's layers in the JAX module's creation order: conv_input,
+    conv1, then for each later stage its downsample and its submanifold
+    layers (SparseBasicBlocks in ``blocks`` when `residual`), and conv_out
+    to 128 channels. `channels` maps ``x_conv1``..``x_conv4`` to widths."""
+    convs, blocks = [], []
+
+    def subm(width, n_blocks):
+        made = blocks if residual else convs
+        for _ in range(n_blocks):
+            made.append(SparseBasicBlock(width, 27, **kw) if residual
+                        else SparseConvLayer(width, width, 27, subm=True,
+                                             **kw))
+
+    convs.append(SparseConvLayer(input_channels, channels['x_conv1'], 27,
+                                 subm=True, **kw))
+    subm(channels['x_conv1'], 1)
+    c_in = channels['x_conv1']
+    for name, _ in STAGES:
+        convs.append(SparseConvLayer(c_in, channels[name], 27, **kw))
+        subm(channels[name], 2)
+        c_in = channels[name]
+    convs.append(SparseConvLayer(c_in, 128, 3, **kw))  # conv_out
+    return convs, blocks
+
+
 class VoxelBackBone8x(nn.Module):
     """``residual=True`` gives VoxelResBackBone8x (SparseBasicBlocks and a
     128-channel stage 4).
@@ -105,86 +195,16 @@ class VoxelBackBone8x(nn.Module):
         self.residual = residual
         self.backbone_channels = {'x_conv1': 16, 'x_conv2': 32, 'x_conv3': 64,
                                   'x_conv4': 128 if residual else 64}
-        kw = {'dtype': dtype, 'generator': generator}
-        convs, blocks = [], []
-
-        def subm(channels, n_blocks):
-            made = blocks if residual else convs
-            for _ in range(n_blocks):
-                made.append(SparseBasicBlock(channels, 27, **kw) if residual
-                            else SparseConvLayer(channels, channels, 27,
-                                                 subm=True, **kw))
-
-        # creation order of the JAX module: conv_input, conv1, then for
-        # each later stage its downsample and its submanifold layers
-        ch = self.backbone_channels
-        convs.append(SparseConvLayer(input_channels, ch['x_conv1'], 27,
-                                     subm=True, **kw))
-        subm(ch['x_conv1'], 1)
-        c_in = ch['x_conv1']
-        for name in ('x_conv2', 'x_conv3', 'x_conv4'):
-            convs.append(SparseConvLayer(c_in, ch[name], 27, **kw))
-            subm(ch[name], 2)
-            c_in = ch[name]
-        convs.append(SparseConvLayer(c_in, 128, 3, **kw))  # conv_out
+        convs, blocks = encoder_layers(input_channels, self.backbone_channels,
+                                       residual, dtype=dtype,
+                                       generator=generator)
         self.convs = nn.ModuleList(convs)
         self.blocks = nn.ModuleList(blocks)
 
     def forward(self, batch):
-        feats = batch['voxel_features']
-        cap = feats.shape[1]
-        host = 'rb_subm1' in batch
-        if host:  # the host voxelizer emits the table sorted
-            st = sparse.SparseTensor(feats, batch['voxel_coords'],
-                                     batch['num_voxels'], self.spatial_shape)
-        else:
-            st = sparse.from_unsorted(feats, batch['voxel_coords'],
-                                      batch['num_voxels'], self.spatial_shape)
-        convs, blocks = iter(self.convs), iter(self.blocks)
-
-        def subm_stack(st, n_blocks, name, first_plain=False):
-            rule = batch[f'rb_{name}'] if host \
-                else sparse.build_subm_rulebook(st, (3, 3, 3))
-            vm, f = st.valid_mask, st.features
-            if first_plain:
-                f = next(convs)(f, vm, rule)
-            for _ in range(n_blocks):
-                f = next(blocks if self.residual else convs)(f, vm, rule)
-            return st._replace(features=f)
-
-        def downsample(st, stride, padding, kernel, stage, name):
-            if host:
-                out_coords = batch[f'rb_{name}_coords']
-                out_num = batch[f'rb_{name}_num']
-                rule = batch[f'rb_{name}']
-                out_shape = tuple(
-                    (n + 2 * p - (k - 1) - 1) // s + 1 for n, k, s, p in
-                    zip(st.spatial_shape, kernel, stride, padding))
-            else:
-                capacity = cap if self.capacities is None \
-                    else int(self.capacities[stage])
-                out_coords, out_num, out_shape = \
-                    sparse.build_strided_out_coords(
-                        st, kernel, stride, padding, capacity)
-                rule = sparse.build_strided_rulebook(
-                    st, out_coords, out_shape, kernel, stride, padding)
-            # the training plan's transposed rulebook, over the input table
-            rb_bwd = batch.get(f'rb_{name}_bwd') if host else None
-            f = next(convs)(st.features, out_coords[..., 0] >= 0, rule,
-                            rb_bwd=rb_bwd, in_valid=st.valid_mask)
-            return sparse.SparseTensor(f, out_coords, out_num, out_shape)
-
-        stages = {}
-        st = stages['x_conv1'] = subm_stack(st, 1, 'subm1', first_plain=True)
-        for stage, (name, padding) in enumerate((
-                ('x_conv2', (1, 1, 1)), ('x_conv3', (1, 1, 1)),
-                ('x_conv4', (0, 1, 1)))):
-            st = downsample(st, (2, 2, 2), padding, (3, 3, 3), stage,
-                            f'down{stage + 2}')
-            st = stages[name] = subm_stack(st, 2, f'subm{stage + 2}')
-        # conv_out: z-compression (3,1,1)/(2,1,1), no padding
-        st_out = downsample(st, (2, 1, 1), (0, 0, 0), (3, 1, 1), 3, 'out')
-
+        stages, _, st_out = encode(
+            batch, iter(self.convs), iter(self.blocks) if self.residual
+            else None, self.spatial_shape, self.capacities)
         return {
             **batch,
             'encoded_spconv_tensor': sparse.sparse_to_dense(st_out),

@@ -1,6 +1,8 @@
-"""PV-RCNN's keypoint foreground head (lidardetection_tpu/models/
-dense_heads/point_head.py:20-83, :113-171): ``FCLayers``,
-``PointHeadSimple``, its point targets and its focal loss.
+"""The point heads of PV-RCNN and Part-A² (lidardetection_tpu/models/
+dense_heads/point_head.py:20-110, :113-171, :236-318): ``FCLayers``,
+``PointHeadSimple`` (PV-RCNN's keypoint foreground head),
+``PointIntraPartOffsetHead`` (Part-A²'s foreground and intra-object part
+offsets), their point targets and losses.
 
 Points are (B, N) padded batches; padding points are labelled -1
 (ignored), so they carry no loss weight.
@@ -10,21 +12,27 @@ import torch
 from torch import nn
 
 from ...core import losses
-from ...core.geometry import enlarge_box3d, points_in_boxes_id
+from ...core.geometry import (
+    enlarge_box3d, points_in_boxes_id, rotate_points_along_z,
+)
 from ..layers import POINT_BN, Dense, MaskedBatchNorm
 
 
 def assign_point_targets(point_coords, point_valid, gt_boxes, extra_width,
-                         num_class):
+                         num_class, ret_part_labels=False):
     """Foreground labels of points, the ``set_ignore_flag`` branch of
     point_head.py:20-66: a point inside a valid gt box takes its class (1
     when `num_class` is 1), a point inside only the box grown by
     `extra_width` is ignored (-1), any other point is background (0), and
     padding points are ignored.
 
+    With `ret_part_labels`, also each foreground point's place in its box
+    (:59-63): ``rotate(point - centre, -heading) / (dx, dy, dz) + 0.5``,
+    in [0, 1]^3 inside the box, and 0 for every other point.
+
     Args: point_coords (B, N, 3); point_valid (B, N) bool; gt_boxes (B, M,
     8), the class last (0 = padding). Returns {'point_cls_labels': (B, N)
-    int64}.
+    int64} and, with `ret_part_labels`, 'point_part_labels' (B, N, 3).
     """
     gt_valid = gt_boxes[..., -1] > 0
     box_id = points_in_boxes_id(point_coords, gt_boxes[..., :7], gt_valid)
@@ -38,8 +46,19 @@ def assign_point_targets(point_coords, point_valid, gt_boxes, extra_width,
     else:
         cls_of_point = torch.ones_like(box_id)
     labels = torch.where(fg, cls_of_point, -ignore.long())
-    return {'point_cls_labels': torch.where(point_valid, labels,
-                                            torch.full_like(labels, -1))}
+    out = {'point_cls_labels': torch.where(point_valid, labels,
+                                           torch.full_like(labels, -1))}
+    if ret_part_labels:
+        b, n = box_id.shape
+        matched = torch.gather(gt_boxes, 1, box_id.clamp(min=0)[..., None]
+                               .expand(-1, -1, gt_boxes.shape[-1]))
+        local = rotate_points_along_z(
+            (point_coords - matched[..., 0:3]).reshape(b * n, 1, 3),
+            -matched[..., 6].reshape(-1)).reshape(b, n, 3)
+        part = local / matched[..., 3:6] + 0.5
+        out['point_part_labels'] = torch.where(fg[..., None], part,
+                                               torch.zeros_like(part))
+    return out
 
 
 def point_cls_loss(point_cls_preds, point_cls_labels, num_class, weight=1.0):
@@ -57,6 +76,23 @@ def point_cls_loss(point_cls_preds, point_cls_labels, num_class, weight=1.0):
     loss = losses.sigmoid_focal_loss(preds[None], one_hot[None],
                                      cls_weights[None]).sum()
     return loss * weight, pos_normalizer
+
+
+def point_part_loss(point_part_preds, point_part_labels, point_cls_labels,
+                    weight=1.0):
+    """Binary cross-entropy of the part offsets over the foreground points
+    (point_head.py:98-110), the sigmoid clamped to [1e-7, 1 - 1e-7] inside
+    the logs, over 3 x the foreground count."""
+    labels = point_cls_labels.reshape(-1)
+    preds = point_part_preds.reshape(-1, 3)
+    targets = point_part_labels.reshape(-1, 3)
+    pos = labels > 0
+    pos_normalizer = pos.sum().float().clamp(min=1.0)
+    p = torch.sigmoid(preds)
+    bce = -(targets * torch.log(p.clamp(min=1e-7))
+            + (1 - targets) * torch.log((1 - p).clamp(min=1e-7)))
+    loss = (bce.sum(-1) * pos).sum() / (3 * pos_normalizer)
+    return loss * weight
 
 
 class FCLayers(nn.Module):
@@ -118,3 +154,55 @@ class PointHeadSimple(nn.Module):
                                    fwd['point_cls_labels'], self.num_class,
                                    w['point_cls_weight'])
         return loss, {'point_loss_cls': loss, 'point_pos_num': pos}
+
+
+class PointIntraPartOffsetHead(nn.Module):
+    """Part-A²'s point head (point_head.py:236-318): per voxel centre the
+    foreground score, ``point_cls_scores`` = max over classes of the
+    sigmoid of ``cls_layers``, and the part offsets, ``point_part_offset``
+    = sigmoid of ``part_reg_layers`` (both ``FCLayers``; PartA2.yaml's
+    empty CLS_FC and PART_FC make each one Dense from the 16 UNet
+    channels). In training it also emits ``point_head_fwd``: the logits,
+    the foreground labels and the part targets, for `loss`. The point box
+    branch (a TARGET_CONFIG.BOX_CODER) is not ported: PointRCNN's item of
+    ROADMAP.md queue 1."""
+
+    def __init__(self, model_cfg, num_class, input_channels, dtype=None,
+                 generator=None):
+        super().__init__()
+        if model_cfg['TARGET_CONFIG'].get('BOX_CODER'):
+            from ..detectors.detector3d import not_ported
+            raise not_ported('PointHeadBox')
+        self.model_cfg, self.num_class = model_cfg, num_class
+        self.cls_layers = FCLayers(input_channels, model_cfg['CLS_FC'],
+                                   num_class, dtype=dtype, generator=generator)
+        self.part_reg_layers = FCLayers(input_channels, model_cfg['PART_FC'],
+                                        3, dtype=dtype, generator=generator)
+
+    def forward(self, batch):
+        feats, valid = batch['point_features'], batch['point_valid']
+        cls_preds = self.cls_layers(feats, valid)
+        part_preds = self.part_reg_layers(feats, valid)
+        out = {**batch, 'point_cls_scores': torch.sigmoid(cls_preds).amax(-1),
+               'point_part_offset': torch.sigmoid(part_preds)}
+        if self.training:
+            targets = assign_point_targets(
+                batch['point_coords'], valid, batch['gt_boxes'],
+                self.model_cfg['TARGET_CONFIG']['GT_EXTRA_WIDTH'],
+                self.num_class, ret_part_labels=True)
+            out['point_head_fwd'] = {'point_cls_preds': cls_preds,
+                                     'point_part_preds': part_preds, **targets}
+        return out
+
+    def loss(self, fwd):
+        w = self.model_cfg['LOSS_CONFIG']['LOSS_WEIGHTS']
+        cls_loss, pos = point_cls_loss(fwd['point_cls_preds'],
+                                       fwd['point_cls_labels'], self.num_class,
+                                       w['point_cls_weight'])
+        part_loss = point_part_loss(fwd['point_part_preds'],
+                                    fwd['point_part_labels'],
+                                    fwd['point_cls_labels'],
+                                    w['point_part_weight'])
+        return cls_loss + part_loss, {'point_loss_cls': cls_loss,
+                                      'point_loss_part': part_loss,
+                                      'point_pos_num': pos}

@@ -1,8 +1,9 @@
 """Detector assembly (lidardetection_tpu/models/detectors/detector3d.py:
 124-245): vfe -> [backbone_3d] -> map_to_bev -> backbone_2d -> dense_head
--> [pfe -> point_head -> roi_head] (PointPillar without a 3D backbone,
-SECOND with one, PV-RCNN with all three point-based slots; ``pfe`` runs
-after the dense head, whose BEV map and sparse stages it reads).
+-> [pfe] -> [point_head -> roi_head] (PointPillar without a 3D backbone,
+SECOND with one, PV-RCNN with all three point-based slots, Part-A² with
+the UNet and the two heads that read its voxel-centre features; ``pfe``
+runs after the dense head, whose BEV map and sparse stages it reads).
 
 In train mode the forward assigns each head's targets and
 `Detector3D.loss` sums the dense head's, the point head's and the RoI
@@ -17,18 +18,25 @@ from ..backbones_2d.bev_backbone import BaseBEVBackbone
 from ..backbones_2d.map_to_bev import HeightCompression, PointPillarScatter
 from ..backbones_3d.pfe import VoxelSetAbstraction
 from ..backbones_3d.spconv_backbone import VoxelBackBone8x
+from ..backbones_3d.spconv_unet import UNetV2
 from ..backbones_3d.vfe import MeanVFE, PillarVFE
 from ..dense_heads.anchor_head import AnchorHeadSingle
-from ..dense_heads.point_head import PointHeadSimple
+from ..dense_heads.point_head import PointHeadSimple, PointIntraPartOffsetHead
+from ..roi_heads.parta2_head import PartA2FCHead
 from ..roi_heads.pvrcnn_head import PVRCNNHead
 
 NOT_PORTED = {  # detector or module name -> ROADMAP.md queue 1 item
-    'PartA2Net': 'Part-A2', 'PointRCNN': 'PointRCNN',
-    'UNetV2': 'Part-A2', 'PartA2FCHead': 'Part-A2',
-    'PointIntraPartOffsetHead': 'Part-A2',
-    'PointNet2MSG': 'PointRCNN', 'PointRCNNHead': 'PointRCNN',
-    'PointHeadBox': 'PointRCNN',
+    'PointRCNN': 'PointRCNN', 'PointNet2MSG': 'PointRCNN',
+    'PointRCNNHead': 'PointRCNN', 'PointHeadBox': 'PointRCNN',
     'AnchorHeadMulti': 'Variants', 'PointHeadSimpleMultiFrame': 'Variants',
+}
+# the modules each slot takes in the port
+PORTED_SLOTS = {
+    'BACKBONE_3D': ('VoxelBackBone8x', 'VoxelResBackBone8x', 'UNetV2'),
+    'BACKBONE_2D': ('BaseBEVBackbone',), 'DENSE_HEAD': ('AnchorHeadSingle',),
+    'PFE': ('VoxelSetAbstraction',),
+    'POINT_HEAD': ('PointHeadSimple', 'PointIntraPartOffsetHead'),
+    'ROI_HEAD': ('PVRCNNHead', 'PartA2FCHead'),
 }
 
 
@@ -62,12 +70,8 @@ class Detector3D(nn.Module):
         pc_range = tuple(dataset_info['point_cloud_range'])
         voxel_size = tuple(dataset_info['voxel_size'])
 
-        for slot, want in (('BACKBONE_2D', 'BaseBEVBackbone'),
-                           ('DENSE_HEAD', 'AnchorHeadSingle'),
-                           ('PFE', 'VoxelSetAbstraction'),
-                           ('POINT_HEAD', 'PointHeadSimple'),
-                           ('ROI_HEAD', 'PVRCNNHead')):
-            if model_cfg.get(slot) and model_cfg[slot]['NAME'] != want:
+        for slot, names in PORTED_SLOTS.items():
+            if model_cfg.get(slot) and model_cfg[slot]['NAME'] not in names:
                 raise not_ported(model_cfg[slot]['NAME'])
         num_point_features = dataset_info['num_point_features']
         bev_channels = model_cfg['MAP_TO_BEV']['NUM_BEV_FEATURES']
@@ -83,14 +87,19 @@ class Detector3D(nn.Module):
             raise not_ported(name)
 
         self.backbone_3d = None
+        point_channels = None
         if model_cfg.get('BACKBONE_3D'):
             name = model_cfg['BACKBONE_3D']['NAME']
-            if name not in ('VoxelBackBone8x', 'VoxelResBackBone8x'):
-                raise not_ported(name)
-            self.backbone_3d = VoxelBackBone8x(
-                model_cfg['BACKBONE_3D'], num_point_features, grid_size,
-                dtype=dtype, residual=name == 'VoxelResBackBone8x',
-                generator=generator)
+            if name == 'UNetV2':
+                self.backbone_3d = UNetV2(
+                    model_cfg['BACKBONE_3D'], num_point_features, grid_size,
+                    voxel_size, pc_range, dtype=dtype, generator=generator)
+                point_channels = self.backbone_3d.num_point_features
+            else:
+                self.backbone_3d = VoxelBackBone8x(
+                    model_cfg['BACKBONE_3D'], num_point_features, grid_size,
+                    dtype=dtype, residual=name == 'VoxelResBackBone8x',
+                    generator=generator)
 
         name = model_cfg['MAP_TO_BEV']['NAME']
         if name == 'PointPillarScatter':
@@ -120,18 +129,24 @@ class Detector3D(nn.Module):
                 model_cfg['PFE'], voxel_size, pc_range, bev_channels,
                 num_point_features, self.backbone_3d.backbone_channels,
                 knobs=op_knobs, dtype=dtype, generator=generator)
-        point_channels = None if self.pfe is None \
-            else self.pfe.num_point_features
+        if self.pfe is not None:
+            point_channels = self.pfe.num_point_features
         if model_cfg.get('POINT_HEAD'):
             cfg = model_cfg['POINT_HEAD']
-            self.point_head = PointHeadSimple(
-                cfg, 1 if cfg.get('CLASS_AGNOSTIC', False) else num_class,
-                self.pfe.num_point_features_before_fusion
-                if cfg.get('USE_POINT_FEATURES_BEFORE_FUSION', False)
-                else point_channels, dtype=dtype, generator=generator)
+            nc = 1 if cfg.get('CLASS_AGNOSTIC', False) else num_class
+            if cfg['NAME'] == 'PointIntraPartOffsetHead':
+                self.point_head = PointIntraPartOffsetHead(
+                    cfg, nc, point_channels, dtype=dtype, generator=generator)
+            else:
+                self.point_head = PointHeadSimple(
+                    cfg, nc, self.pfe.num_point_features_before_fusion
+                    if cfg.get('USE_POINT_FEATURES_BEFORE_FUSION', False)
+                    else point_channels, dtype=dtype, generator=generator)
         if model_cfg.get('ROI_HEAD'):
             cfg = model_cfg['ROI_HEAD']
-            self.roi_head = PVRCNNHead(
+            head = PartA2FCHead if cfg['NAME'] == 'PartA2FCHead' \
+                else PVRCNNHead
+            self.roi_head = head(
                 cfg, point_channels,
                 1 if cfg.get('CLASS_AGNOSTIC', True) else num_class,
                 dtype=dtype, generator=generator)

@@ -16,8 +16,7 @@ Neighbour lookup is a binary search of the sorted keys
 (``torch.searchsorted``); the active outputs of a strided convolution are
 the sorted unique candidate keys (``torch.unique``), cut at the capacity.
 Both run the same on the CPU and on the card, and every integer result
-equals the JAX package's. The inverse-convolution rulebook is not ported
-yet (ROADMAP.md queue 1).
+equals the JAX package's, the inverse convolution's rulebook included.
 """
 
 from typing import NamedTuple
@@ -173,6 +172,30 @@ def build_strided_rulebook(st, out_coords, out_spatial_shape, kernel_size,
     in_pos = out_coords.long()[:, :, None, :] * s - p + offsets
     return _lookup_positions(st.coords, st.spatial_shape, in_pos,
                              out_coords[..., 0] >= 0)
+
+
+def build_inverse_rulebook(down, up_coords, kernel_size, stride, padding):
+    """Rulebook of an inverse convolution (SparseInverseConv3d): back onto
+    the table `up_coords` that the paired strided convolution read.
+
+    Up voxel u receives down voxel o at kernel offset k iff o*s - p + k ==
+    u, so o = (u + p - k) / s where that divides exactly. ``u + p - k`` is
+    negative at the grid's low edges (and wherever the padding is 0), so
+    the remainder and the quotient are floored, as JAX's ``%`` and ``//``
+    are. Offsets index the same (K,) weight layout as the forward
+    convolution. Returns (B, V_up, K) int32 rows into the `down` table
+    (V_down = miss).
+    """
+    dev = down.coords.device
+    offsets = torch.from_numpy(_kernel_offsets(kernel_size)).to(dev)
+    s = torch.tensor([int(x) for x in stride], device=dev)
+    p = torch.tensor([int(x) for x in padding], device=dev)
+    num = up_coords.long()[:, :, None, :] + p - offsets  # (B, V_up, K, 3)
+    div_ok = (torch.remainder(num, s) == 0).all(-1)
+    o = torch.div(num, s, rounding_mode='floor')
+    row_ok = up_coords[..., 0] >= 0
+    rows = _lookup_positions(down.coords, down.spatial_shape, o, row_ok)
+    return torch.where(div_ok, rows, down.coords.shape[1])
 
 
 class _SparseConv(torch.autograd.Function):

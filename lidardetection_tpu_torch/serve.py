@@ -1,4 +1,5 @@
-"""Serving (PointPillar, SECOND and PV-RCNN): the port's entry point.
+"""Serving (PointPillar, SECOND, PV-RCNN and Part-A²): the port's entry
+point.
 
 ``Detector(cfg_file, device="cuda", seed=0, state_dict=None)`` builds the
 detector of a YAML config (or of a loaded config) on the card; parameters
@@ -20,6 +21,8 @@ CLI, answering requests on synthetic scenes made from ``--seed``:
 
     python -m lidardetection_tpu_torch.serve \\
         --cfg_file tools/cfgs/kitti_models/second.yaml --num_requests 8
+    python -m lidardetection_tpu_torch.serve \\
+        --cfg_file tools/cfgs/kitti_models/PartA2.yaml --num_requests 8
 """
 
 import argparse

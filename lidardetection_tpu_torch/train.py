@@ -1,5 +1,6 @@
-"""Training (PointPillar, SECOND and PV-RCNN): the port's entry point, the
-counterpart of tools/train.py -> engine/trainer.py -> parallel/train_step.py.
+"""Training (PointPillar, SECOND, PV-RCNN and Part-A²): the port's entry
+point, the counterpart of tools/train.py -> engine/trainer.py ->
+parallel/train_step.py.
 
 ``Trainer(cfg_file, device="cuda", seed=0, state_dict=None, total_steps=...)``
 builds the detector of a YAML config (or of a loaded config) in train mode
@@ -16,8 +17,8 @@ The CPU is used only when asked (``device="cpu"``); the default device
 raises when CUDA is absent. Random numbers come from the ``torch.Generator``
 that initializes the parameters, an ``np.random.RandomState`` that
 shuffles each cloud's points, and a generator made each step from
-(``seed``, step) for the random layers (PV-RCNN's RoI sampling and
-dropout, ``parallel/train_step.py::step_draw``), all from ``seed``.
+(``seed``, step) for the random layers (the two-stage detectors' RoI
+sampling and dropout, ``parallel/train_step.py::step_draw``), all from ``seed``.
 
 CLI, training on synthetic scenes made from ``--seed``:
 
@@ -25,6 +26,8 @@ CLI, training on synthetic scenes made from ``--seed``:
         --cfg_file tools/cfgs/kitti_models/second.yaml --num_steps 4 --batch_size 4
     python -m lidardetection_tpu_torch.train \
         --cfg_file tools/cfgs/kitti_models/pv_rcnn.yaml --num_steps 4
+    python -m lidardetection_tpu_torch.train \
+        --cfg_file tools/cfgs/kitti_models/PartA2.yaml --num_steps 4
 """
 
 import argparse

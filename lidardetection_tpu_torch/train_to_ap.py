@@ -12,6 +12,8 @@ points at the decode, the assigner, the losses or NMS.
         --cfg_file tools/cfgs/kitti_models/second.yaml --epochs 80
     python -m lidardetection_tpu_torch.train_to_ap \\
         --cfg_file tools/cfgs/kitti_models/pv_rcnn.yaml --lr 0.003 --epochs 80
+    python -m lidardetection_tpu_torch.train_to_ap \\
+        --cfg_file tools/cfgs/kitti_models/PartA2.yaml --lr 0.003 --epochs 100
 
 Runs on the card unless given ``--device cpu``. Run again on the same
 ``--output_dir``, it resumes from the newest checkpoint. Prints the

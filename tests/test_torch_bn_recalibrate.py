@@ -39,6 +39,7 @@ from lidardetection_tpu_torch.models.backbones_3d.vfe import PillarVFE
 from lidardetection_tpu_torch.models.layers import MaskedBatchNorm
 from lidardetection_tpu_torch.parallel import train_step
 from test_torch_train_step import KEYS, _leaves, _randomize, _reduce
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 N_BATCHES = 3
 

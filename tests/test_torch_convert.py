@@ -18,6 +18,7 @@ from lidardetection_tpu_torch.config import cfg_from_yaml_file, dataset_info
 from lidardetection_tpu_torch.convert import flax_to_state_dict
 from lidardetection_tpu_torch.models import build_network
 from lidardetection_tpu_torch.models.backbones_2d.bev_backbone import BaseBEVBackbone
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize('k', [2, 4])

@@ -25,6 +25,7 @@ _SCRIPT = textwrap.dedent('''
     vox.MAX_NUMBER_OF_VOXELS = {'train': 2000, 'test': 2000}
     cfg.DATA_CONFIG.POINT_CLOUD_RANGE = [0, -40.96, -3, 71.68, 40.96, 1]
     cfg.MODEL.BACKBONE_2D.LAYER_NUMS = %(layer_nums)s
+    %(extra)s
     det = Detector(cfg, device='cpu')
     points, _, _ = make_scene(np.random.RandomState(0),
                               det.info['point_cloud_range'], num_ground=2000)
@@ -52,22 +53,33 @@ _SCRIPT = textwrap.dedent('''
 ''')
 
 
+# Part-A²'s RoI head at a small grid and few RoIs (at its 12^3 grids and
+# 128 RoIs a CPU step takes minutes)
+_SMALL_ROI_HEAD = ('roi = cfg.MODEL.ROI_HEAD; roi.ROI_AWARE_POOL.POOL_SIZE = 4; '
+                   'roi.TARGET_CONFIG.ROI_PER_IMAGE = 16; '
+                   'roi.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE = 64')
+
+
 @pytest.mark.parametrize('name,voxel_size,layer_nums', [
     ('pointpillar', [0.64, 0.64, 4], [0, 0, 0]),
     ('second', [0.32, 0.32, 0.1], [0, 0]),
+    ('PartA2', [0.32, 0.32, 0.1], [0, 0]),
 ])
 def test_port_imports_no_jax(name, voxel_size, layer_nums):
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     env['PYTHONPATH'] = str(ROOT)
+    env['OMP_NUM_THREADS'] = '2'  # as torch_threads.py: six files at once
     script = _SCRIPT % {'name': name, 'voxel_size': voxel_size,
-                        'layer_nums': layer_nums}
+                        'layer_nums': layer_nums,
+                        'extra': _SMALL_ROI_HEAD if name == 'PartA2' else ''}
     proc = subprocess.run([sys.executable, '-c', script], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert 'LEAKED []' in proc.stdout, proc.stdout
 
 
-@pytest.mark.parametrize('name', ['pointpillar', 'second', 'pv_rcnn'])
+@pytest.mark.parametrize('name', ['pointpillar', 'second', 'pv_rcnn',
+                                  'PartA2'])
 def test_default_device_is_cuda(name):
     from lidardetection_tpu_torch.serve import Detector
 
@@ -102,7 +114,7 @@ def test_sources_name_no_jax_module():
         assert not pattern.search(path.read_text()), path
 
 
-@pytest.mark.parametrize('name', ['TRAIN', 'PVRCNN'])
+@pytest.mark.parametrize('name', ['TRAIN', 'PVRCNN', 'PARTA2'])
 def test_unported_paths_raise_with_the_roadmap_item(name):
     from lidardetection_tpu_torch.config import cfg_from_yaml_file
     from lidardetection_tpu_torch.models import build_network
@@ -122,6 +134,23 @@ def test_unported_paths_raise_with_the_roadmap_item(name):
                     'REG_TRACKING_INFO': True}
         with pytest.raises(NotImplementedError, match='Variants'):
             roi_head_utils.assign_roi_targets({}, {}, tracking)
+        return
+    if name == 'PARTA2':  # ported; its anchor-free variant and
+        # PointRCNN's point box head are not
+        from lidardetection_tpu_torch.config import dataset_info
+        cfg = cfg_from_yaml_file('tools/cfgs/kitti_models/PartA2.yaml')
+        cfg.MODEL.ROI_HEAD.ROI_AWARE_POOL.POOL_SIZE = 4  # a small first FC
+        cfg.MODEL.ROI_HEAD.DISABLE_PART = True
+        model = build_network(cfg.MODEL, 3, dataset_info(cfg.DATA_CONFIG))
+        with pytest.raises(NotImplementedError, match='Variants'):
+            model.roi_head({'batch_box_preds': torch.zeros(1, 4, 7),
+                            'batch_cls_preds': torch.zeros(1, 4, 3)})
+        cfg.MODEL.POINT_HEAD.TARGET_CONFIG.BOX_CODER = 'PointResidualCoder'
+        with pytest.raises(NotImplementedError, match='PointRCNN'):
+            build_network(cfg.MODEL, 3, dataset_info(cfg.DATA_CONFIG))
+        cfg.MODEL.NAME = 'PointRCNN'
+        with pytest.raises(NotImplementedError, match='PointRCNN'):
+            build_network(cfg.MODEL, 3, dataset_info(cfg.DATA_CONFIG))
         return
     cfg = cfg_from_yaml_file('tools/cfgs/kitti_models/pointpillar.yaml')
     head_cfg = cfg.MODEL.DENSE_HEAD

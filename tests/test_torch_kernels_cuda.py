@@ -604,7 +604,8 @@ def _set_tf32_flags(cudnn, matmul, precision):
 
 
 @pytest.mark.parametrize('cfg_file', ['tools/cfgs/kitti_models/pointpillar.yaml',
-                                      'tools/cfgs/kitti_models/pv_rcnn.yaml'])
+                                      'tools/cfgs/kitti_models/pv_rcnn.yaml',
+                                      'tools/cfgs/kitti_models/PartA2.yaml'])
 def test_f32_forward_ignores_the_tf32_flags(device, cfg_file):
     """An f32 forward with TF32 allowed for cuDNN and matmul, and the matmul
     precision 'high', gives the bits of the same forward with them off
@@ -634,3 +635,62 @@ def test_f32_forward_ignores_the_tf32_flags(device, cfg_file):
     assert [k for k in tensors if k.startswith('batch_')]
     for key in tensors:
         assert torch.equal(on[key], off[key]), key
+
+
+@pytest.mark.parametrize('geometry', [((2, 2, 2), (1, 1, 1)), ((2, 2, 2), (0, 1, 1))])
+def test_inverse_rulebook_on_the_card_equals_the_cpu(device, geometry):
+    """UNetV2's inverse rulebook built on the card: the integers of the
+    same builder on the CPU (floored division and remainder on both)."""
+    stride, padding = geometry
+    rng = np.random.RandomState(1)
+    shape = (21, 40, 36)
+    coords = np.full((2, 900, 3), -1, np.int32)
+    for b, n in enumerate((800, 500)):
+        keys = np.sort(rng.choice(int(np.prod(shape)), n, replace=False))
+        coords[b, :n] = np.stack(np.unravel_index(keys, shape), -1)
+    num = torch.tensor([800, 500], dtype=torch.int32)
+    out = []
+    for dev in ('cpu', device):
+        up = sparse.SparseTensor(torch.zeros(2, 900, 1, device=dev),
+                                 torch.from_numpy(coords).to(dev), num.to(dev),
+                                 shape)
+        d_coords, d_num, d_shape = sparse.build_strided_out_coords(
+            up, (3, 3, 3), stride, padding, 4000)
+        down = sparse.SparseTensor(torch.zeros(2, 4000, 1, device=dev),
+                                   d_coords, d_num, d_shape)
+        out.append(sparse.build_inverse_rulebook(
+            down, up.coords, (3, 3, 3), stride, padding).cpu())
+    cpu, card = out
+    assert torch.equal(cpu, card) and (cpu < 4000).any()
+
+
+@pytest.mark.parametrize('method', ['avg', 'max'])
+def test_roiaware_pool3d_on_the_card(device, method):
+    """Both pools on the card: within 1e-6 of the CPU's, and the same bits
+    on a second run (the avg pool sums each cell in a fixed order)."""
+    from lidardetection_tpu_torch.ops.roi_pool import (
+        roi_point_sample, roiaware_pool3d,
+    )
+
+    rng = np.random.RandomState(2)
+    rois = np.zeros((2, 64, 7), np.float32)
+    rois[..., 0:2] = rng.uniform(-10, 10, (2, 64, 2))
+    rois[..., 3:6] = rng.uniform(1, 4, (2, 64, 3))
+    rois[..., 6] = rng.uniform(-3, 3, (2, 64))
+    pts = rng.uniform(-12, 12, (2, 20000, 3)).astype(np.float32)
+    pts[..., 2] = rng.uniform(-2, 2, (2, 20000))
+    feats = rng.rand(2, 20000, 16).astype(np.float32)
+    num = np.array([20000, 15000], np.int32)
+    valid = np.ones((2, 64), bool)
+    def pool(p, f, n, r, v):
+        return roiaware_pool3d(p, f, r, roi_point_sample(p, n, r, v, 1024),
+                               (12, 12, 12), method)
+
+    args = [torch.from_numpy(x) for x in (pts, feats, num, rois, valid)]
+    want = pool(*args)
+    on_card = [a.to(device) for a in args]
+    got, again = pool(*on_card), pool(*on_card)
+    torch.cuda.synchronize()
+    assert float(want.abs().max()) > 0
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)

@@ -44,6 +44,7 @@ from lidardetection_tpu_torch.models.backbones_3d.pointnet2_modules import (
 from lidardetection_tpu_torch.ops import sparse
 from lidardetection_tpu_torch.ops.select_cuda import ball_select
 from lidardetection_tpu_torch.serve import Detector
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 CFG = 'tools/cfgs/kitti_models/pv_rcnn.yaml'
 ATOL = 1e-4

@@ -68,6 +68,7 @@ from lidardetection_tpu_torch.parallel import train_step
 from lidardetection_tpu_torch.train import Trainer
 from test_torch_pvrcnn import _random_variables
 from test_torch_train_step import _leaves, _ListLoader
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 CFG = 'tools/cfgs/kitti_models/pv_rcnn.yaml'
 KEYS = ('voxels', 'voxel_coords', 'voxel_num_points', 'num_voxels', 'points',

@@ -36,6 +36,7 @@ from lidardetection_tpu_torch.models.backbones_3d.spconv_backbone import VoxelBa
 from lidardetection_tpu_torch.models.backbones_3d.vfe import MeanVFE
 from lidardetection_tpu_torch.ops.sparse_conv_cuda import rulebook_conv
 from lidardetection_tpu_torch.serve import Detector
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 CFG = 'tools/cfgs/kitti_models/second.yaml'
 

@@ -40,6 +40,7 @@ from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
 from lidardetection_tpu_torch.parallel import train_step
 from lidardetection_tpu_torch.train import Trainer
 from lidardetection_tpu_torch.utils.checkpoint import latest_checkpoint
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 KEYS = ('voxels', 'voxel_coords', 'voxel_num_points', 'num_voxels', 'gt_boxes')
 

@@ -20,6 +20,7 @@ import yaml
 from lidardetection_tpu_torch import train_to_ap
 from lidardetection_tpu_torch.config import cfg_from_yaml_file
 from test_torch_train_step import _reduce
+from torch_threads import two_torch_threads  # noqa: F401 (autouse)
 
 GATE_KEYS = {'metric', 'value', 'unit', 'pass', 'scenes', 'epochs', 'device',
              'wall_s', 's_per_epoch', 'sec_per_example', 'num_candidates_p50',
