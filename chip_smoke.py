@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: PointPillar,
-SECOND and Part-A², serving, training and evaluation; PV-RCNN serving and
-training.
+SECOND, Part-A² and PointRCNN, serving, training and evaluation; PV-RCNN
+serving and training.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -137,8 +137,27 @@ after the PV-RCNN phase of each kind:
    a batch), its detections equal to the unbucketed device-built path's;
    the KITTI protocol native against numpy on its annos; one request and
    one step under the profiler.
-The line before the last is the kernels' JSON, preceded by the card's name
-and power limit; the last line is the device JSON.
+PointRCNN (tools/cfgs/kitti_models/pointrcnn.yaml: PointNet2MSG over 16384
+sampled points, the point box head, RoI point pooling of 512 points, the
+RoI set abstractions), run after Part-A²'s phase of each kind:
+ - serving, bf16: 3 requests with 2 K5 checked per request (the first two
+   set abstraction levels, 16384 and 4096 sources, take the grid query),
+   latency and peak memory; K5 against its plain version at both levels
+   of a real request (B = 1 and 2, a third of the centres invalid) and
+   its time per level beside its bound; the forward split (the 4 SA and 4
+   FP levels, the point head, the proposal layer, the RoI pool, the RoI
+   set abstractions and FCs); one f32 request, kernels against plain
+   versions on the card;
+ - training, B = 2: 2 warm-up and 3 timed steps with 2 K5 checked per
+   step; the step split; two identical steps leaf by leaf (reported); one
+   f32 step, kernels against plain versions on the card, the same sampled
+   RoIs, every leaf within 1e-3;
+ - evaluation (4 scenes at B = 2, 2 K5 a batch), the KITTI protocol native
+   against numpy on its annos; one request and one step under the
+   profiler.
+The line before the last is the kernels' JSON (K5's entry with PointRCNN's
+two levels under ``pointrcnn``), preceded by the card's name and power
+limit; the last line is the device JSON.
 """
 
 import contextlib
@@ -153,11 +172,13 @@ CFG = 'tools/cfgs/kitti_models/pointpillar.yaml'
 CFG_SECOND = 'tools/cfgs/kitti_models/second.yaml'
 CFG_PVRCNN = 'tools/cfgs/kitti_models/pv_rcnn.yaml'
 CFG_PARTA2 = 'tools/cfgs/kitti_models/PartA2.yaml'
+CFG_POINTRCNN = 'tools/cfgs/kitti_models/pointrcnn.yaml'
 SEED = 0
 N_REQUESTS = 3               # PointPillar
 N_REQUESTS_SECOND = 3
 N_REQUESTS_PVRCNN = 3
 N_REQUESTS_PARTA2 = 3
+N_REQUESTS_POINTRCNN = 3
 TRAIN_BATCH = 4              # BATCH_SIZE_PER_GPU of pointpillar and second
 TRAIN_WARMUP, TRAIN_STEPS = 2, 3
 EVAL_SCENES, EVAL_BATCH = 4, 2  # the eval phase, both detectors
@@ -263,6 +284,14 @@ def make_clouds(det, n, seed):
     rng = np.random.RandomState(seed)
     pc_range = np.asarray(det.info['point_cloud_range'], np.float32)
     return [make_scene(rng, pc_range)[0] for _ in range(n)]
+
+
+def batch_rows(batch):
+    """What a batch holds per sample: voxels, or a point config's sampled
+    points."""
+    if 'num_voxels' in batch:
+        return f'voxels {batch["num_voxels"].tolist()}'
+    return f'points {batch["num_points"].tolist()}'
 
 
 def time_scatter(torch, feats, keys, n_slots):
@@ -716,7 +745,7 @@ def serve_phase(torch, det, clouds, per_request, earlier=None):
         tables = f', stage tables {stage_counts(out)}' \
             if 'multi_scale_3d_features' in out else ''
         print(f'request {i}: {len(points)} points, '
-              f'{int(batch["num_voxels"][0])} voxels{tables}, {live} live NMS '
+              f'{batch_rows(batch)}{tables}, {live} live NMS '
               f'candidates, NMS rows read {rows_read[-1]}, num_preds {n}, '
               f'latency {latency[-1]:.2f} ms '
               f'(host clock: make_batch {stages[-1][0]:.2f}, forward '
@@ -745,12 +774,14 @@ def serve_phase(torch, det, clouds, per_request, earlier=None):
     return total
 
 
-def forward_split(torch, det, points, repeats=3, functions=()):
+def forward_split(torch, det, points, repeats=3, functions=(), modules=()):
     """Where a request's forward goes, by module: host clock around each
     top-level module (and around the sparse layers inside the 3D backbone,
-    and around each call of the functions of `functions`, (owner,
-    attribute, labels): the n-th call of a forward is labelled labels[n])
-    with the device drained at both ends, median of `repeats`."""
+    around each module of `modules`, (label, module), the calls of one
+    label summed, and around each call of the functions of `functions`,
+    (owner, attribute, labels): the n-th call of a forward is labelled
+    labels[n]) with the device drained at both ends, median of
+    `repeats`."""
     from lidardetection_tpu_torch.models.backbones_3d.spconv_backbone import (
         SparseConvLayer,
     )
@@ -786,6 +817,8 @@ def forward_split(torch, det, points, repeats=3, functions=()):
     for module in det.model.modules():
         if isinstance(module, SparseConvLayer):
             watch('sparse layers', module)
+    for name, module in modules:
+        watch(name, module)
     for owner, attr, labels in functions:
         wrapped.append((owner, attr, getattr(owner, attr)))
         setattr(owner, attr, timed(attr, labels, getattr(owner, attr)))
@@ -961,8 +994,7 @@ def train_phase(torch, trainer, batches, per_step, earlier=None):
         timed = i >= TRAIN_WARMUP
         print(f'{name} step {i}{"" if timed else " (warm-up)"}: '
               + ' '.join(f'{k} {v:.4f}' for k, v in terms.items())
-              + f', lr {trainer.lr_fn(i):.3e}, voxels '
-              f'{batch["num_voxels"].tolist()}, gt '
+              + f', lr {trainer.lr_fn(i):.3e}, {batch_rows(batch)}, gt '
               f'{(batch["gt_boxes"][..., -1] > 0).sum(1).tolist()}, host clock '
               f'{host:.2f} ms, CUDA events {start.elapsed_time(end):.2f} ms, '
               f'launches {counts}, peak memory '
@@ -1410,6 +1442,61 @@ def select_work(torch, args):
     return pairs, rows_read, n_bytes, 9 * pairs, most
 
 
+def select_held(torch, args, what):
+    """K5 against its plain version on one case: bit-equal, and the largest
+    |kernel - plain| over entries finite on both sides, plus 1 where one
+    side is -inf and the other not. Returns the error and the number of
+    runs at the cut."""
+    from lidardetection_tpu_torch.ops.select_cuda import (
+        ball_select, ball_select_plain,
+    )
+
+    got, want = ball_select(*args), ball_select_plain(*args)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = 0.0
+    for a, b in zip(got, want):
+        both = torch.isfinite(a) & torch.isfinite(b)
+        err = max(err, float(torch.where(both, a - b, 0).abs().max())
+                  + float((torch.isinf(a) != torch.isinf(b)).any()))
+    hits = [int(torch.isfinite(a).sum()) for a in got]
+    start, end, max_run = args[2], args[3], args[7]
+    cut = int((end - start == max_run).sum())
+    print(f'K5 ball_select {what}: runs {tuple(start.shape)}, {cut} runs '
+          f'at the {max_run}-row cut, hits selected per radius {hits}: '
+          f'bit-equal to plain {same}, max abs err {err}', flush=True)
+    check(same and err == 0 and sum(hits) > 0, f'ball_select {what} bit-equal')
+    return err, cut
+
+
+def select_timings(torch, named_args):
+    """For each (name, K5 arguments): its device time, its plain version's,
+    and its bound from `select_work`."""
+    from lidardetection_tpu_torch.ops.select_cuda import (
+        ball_select, ball_select_plain,
+    )
+
+    rows = []
+    for src, args in named_args:
+        pairs, rows_read, n_bytes, n_flop, most = select_work(torch, args)
+        row = {'source': src, 'n_row': args[2].shape[-1],
+               'rows': args[1].shape[1], 'centres': args[4].shape[1],
+               'rows_read': rows_read, 'most_rows_a_centre': most,
+               'radii': list(args[5]),
+               'nsamples': list(args[6]), 'live_pairs': pairs,
+               'bytes': n_bytes, 'flop': n_flop,
+               'ms': cuda_ms(lambda: ball_select(*args), torch),
+               'plain_ms': cuda_ms(lambda: ball_select_plain(*args), torch)}
+        row['bound_ms'], row['bound_by'] = bound_ms(n_bytes, n_flop)
+        rows.append(row)
+        print(f'ball_select {src} B=1: n_row {row["n_row"]}, {row["rows"]} rows '
+              f'({rows_read} read), {row["centres"]} centres, {pairs} live '
+              f'pairs (at most {most} a centre), device {row["ms"]:.4f} ms, '
+              f'plain {row["plain_ms"]:.4f} ms, bound {row["bound_ms"]:.5f} ms '
+              f'({row["bound_by"]}; {n_bytes} bytes, {n_flop} FLOP)', flush=True)
+    return rows
+
+
 def select_kernel_phase(torch, det):
     """K5 against its plain version on the card, bit for bit: the five
     sources' (table, runs, centres) of a real request at B = 2 (the yaml's
@@ -1417,9 +1504,7 @@ def select_kernel_phase(torch, det):
     centres invalid, and a cloud whose cells hold more than the 64 cap;
     then its time per source at one request's shape."""
     from lidardetection_tpu_torch.ops import pointnet2
-    from lidardetection_tpu_torch.ops.select_cuda import (
-        ball_select, ball_select_plain, select_launch_plan,
-    )
+    from lidardetection_tpu_torch.ops.select_cuda import select_launch_plan
 
     clouds = make_clouds(det, 2, SEED + 500)
     calls, _ = record_ball_selects(lambda: det.forward(det.make_batch(clouds)))
@@ -1429,26 +1514,7 @@ def select_kernel_phase(torch, det):
     g = torch.Generator(device='cuda').manual_seed(SEED)
 
     def held(args, what):
-        """Kernel against plain on one case: bit-equal, and the largest
-        |kernel - plain| over entries finite on both sides, plus 1 where one
-        side is -inf and the other not. Returns the error and the number of
-        runs at the cut."""
-        got, want = ball_select(*args), ball_select_plain(*args)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(got, want))
-        err = 0.0
-        for a, b in zip(got, want):
-            both = torch.isfinite(a) & torch.isfinite(b)
-            err = max(err, float(torch.where(both, a - b, 0).abs().max())
-                      + float((torch.isinf(a) != torch.isinf(b)).any()))
-        hits = [int(torch.isfinite(a).sum()) for a in got]
-        start, end, max_run = args[2], args[3], args[7]
-        cut = int((end - start == max_run).sum())
-        print(f'K5 ball_select {what}: runs {tuple(start.shape)}, {cut} runs '
-              f'at the {max_run}-row cut, hits selected per radius {hits}: '
-              f'bit-equal to plain {same}, max abs err {err}', flush=True)
-        check(same and err == 0 and sum(hits) > 0, f'ball_select {what} bit-equal')
-        return err, cut
+        return select_held(torch, args, what)
 
     ones, errs = [], []
     for src, args in zip(sources, calls):
@@ -1512,29 +1578,10 @@ def select_kernel_phase(torch, det):
     errs.append(held((xyz, descending, start, end, centers, *static),
                      'raw_points, orig descending along each run')[0])
 
-    rows, total = [], {'ms': 0.0, 'plain_ms': 0.0, 'bytes_ms': 0.0,
-                       'ops_ms': 0.0}
-    for src, args in zip(sources, ones):
-        pairs, rows_read, n_bytes, n_flop, most = select_work(torch, args)
-        row = {'source': src, 'n_row': args[2].shape[-1],
-               'rows': args[1].shape[1], 'rows_read': rows_read,
-               'most_rows_a_centre': most,
-               'radii': list(args[5]),
-               'nsamples': list(args[6]), 'live_pairs': pairs,
-               'bytes': n_bytes, 'flop': n_flop,
-               'ms': cuda_ms(lambda: ball_select(*args), torch),
-               'plain_ms': cuda_ms(lambda: ball_select_plain(*args), torch)}
-        row['bound_ms'], row['bound_by'] = bound_ms(n_bytes, n_flop)
-        for key in ('ms', 'plain_ms'):
-            total[key] += row[key]
-        total['bytes_ms'] += n_bytes / HBM_BYTES_PER_S * 1e3
-        total['ops_ms'] += n_flop / F32_FLOP_PER_S * 1e3
-        rows.append(row)
-        print(f'ball_select {src} B=1: n_row {row["n_row"]}, {row["rows"]} rows '
-              f'({rows_read} read), {pairs} live pairs (at most {most} a '
-              f'centre), device {row["ms"]:.4f} ms, plain '
-              f'{row["plain_ms"]:.4f} ms, bound {row["bound_ms"]:.5f} ms '
-              f'({row["bound_by"]}; {n_bytes} bytes, {n_flop} FLOP)', flush=True)
+    rows = select_timings(torch, zip(sources, ones))
+    total = {key: sum(r[key] for r in rows) for key in ('ms', 'plain_ms')}
+    total['bytes_ms'] = sum(r['bytes'] for r in rows) / HBM_BYTES_PER_S * 1e3
+    total['ops_ms'] = sum(r['flop'] for r in rows) / F32_FLOP_PER_S * 1e3
     bound = sum(r['bound_ms'] for r in rows)
     print(f'ball_select, the 5 launches of a request: device {total["ms"]:.4f} '
           f'ms, plain {total["plain_ms"]:.4f} ms, bound {bound:.5f} ms',
@@ -1591,12 +1638,13 @@ def compare_plain_phase(torch, det, cfg_file, points, wrappers):
     cfg.MODEL.COMPUTE_DTYPE = 'float32'
     state = {k: v.cpu() for k, v in det.model.state_dict().items()}
     twin = Detector(cfg, device='cuda', state_dict=state)
+    batch = twin.make_batch([points])  # once: a point config samples anew
     results = {}
     for name, plain in (('kernels', False), ('plain versions', True)):
         for k in wrappers:
             k.launches = 0
         with plain_versions() if plain else contextlib.nullcontext():
-            out = twin.forward(twin.make_batch([points]))
+            out = twin.forward(batch)
             preds = twin.postprocess(out)
         launched = sum(k.launches for k in wrappers)
         check((launched == 0) == plain, f'f32 request with {name}: {launched} '
@@ -1910,8 +1958,9 @@ class CountedLoader:
 def eval_phase(torch, cfg_file, per_batch):
     """The evaluation main path: ``engine/evaluator.py::eval_one_epoch`` on
     the card over EVAL_SCENES synthetic scenes at EVAL_BATCH, the yaml's
-    full width and test cap, random weights from SEED with class-logit
-    bias 0 (live NMS candidates), after one warm-up batch through the same
+    full width and test cap, random weights from SEED with the dense
+    head's class-logit bias 0 (live NMS candidates), after one warm-up
+    batch through the same
     eval step. Returns the launches of the run, the annos and the
     dataset."""
     import logging
@@ -1929,8 +1978,9 @@ def eval_phase(torch, cfg_file, per_batch):
     post = cfg.MODEL.POST_PROCESSING
     model = build_network(cfg.MODEL, len(classes), dataset_info(cfg.DATA_CONFIG),
                           seed=SEED).to('cuda')
-    with torch.no_grad():
-        model.dense_head.conv_cls_bias.zero_()
+    if model.dense_head is not None:
+        with torch.no_grad():
+            model.dense_head.conv_cls_bias.zero_()
     _, loader = build_test_loader(cfg, EVAL_BATCH, EVAL_SCENES, seed=SEED + 500)
     make_eval_step(model, post, len(classes))(
         device_batch(next(iter(loader)), 'cuda'))  # warm-up
@@ -2359,6 +2409,96 @@ def unet_gradient_phase(torch, trainer, batch):
              'per_step_bound_ms': k3['bound_ms'], 'step_layers': rows})
 
 
+def pointrcnn_kernel_phase(torch, det):
+    """K5 at PointRCNN's two shapes against its plain version on the card,
+    bit for bit: the (table, runs, centres) of the two MSG levels of a
+    real request (16384 sources and 4096 centres at radii (0.1, 0.5); 4096
+    and 1024 at (0.5, 1.0); nsample (16, 32)) at B = 1 and at B = 2, and
+    with a third of the centres invalid; then its time at each level of a
+    request beside its bound and its plain version's. Returns the rows and
+    the largest error."""
+    clouds = make_clouds(det, 2, SEED + 900)
+    one, _ = record_ball_selects(lambda: det.forward(det.make_batch(clouds[:1])))
+    two, _ = record_ball_selects(lambda: det.forward(det.make_batch(clouds)))
+    check(len(one) == len(two) == 2, f'two K5 calls a request ({len(one)})')
+    levels = ('SA level 1', 'SA level 2')
+    errs = []
+    for level, args_1, args_2 in zip(levels, one, two):
+        errs.append(select_held(torch, args_1, f'PointRCNN {level} B=1')[0])
+        errs.append(select_held(torch, args_2, f'PointRCNN {level} B=2')[0])
+        xyz, orig, start, end, centers, *static = args_1
+        third = (torch.arange(start.shape[1], device='cuda') % 3 == 0)[
+            None, :, None]
+        errs.append(select_held(
+            torch, (xyz, orig, start,
+                    torch.where(third, start, end).contiguous(), centers,
+                    *static),
+            f'PointRCNN {level}, a third of the centres invalid')[0])
+    rows = select_timings(torch, zip(levels, one))
+    print(f'ball_select, the 2 launches of a PointRCNN request: device '
+          f'{sum(r["ms"] for r in rows):.4f} ms, plain '
+          f'{sum(r["plain_ms"] for r in rows):.4f} ms, bound '
+          f'{sum(r["bound_ms"] for r in rows):.5f} ms', flush=True)
+    return rows, max(errs)
+
+
+def pointrcnn_split(torch, det, points):
+    """A PointRCNN request's forward by module (``forward_split``): the 4
+    set abstraction and 4 feature propagation levels of the backbone, the
+    point head, and in the RoI head the proposal layer, the RoI point pool,
+    its 3 set abstraction levels and its FCs, the device drained around
+    each."""
+    from lidardetection_tpu_torch.models.roi_heads import (
+        pointrcnn_head, roi_head_utils,
+    )
+
+    backbone, head = det.model.backbone_3d, det.model.roi_head
+    levels = [(f'SA{i + 1}', m) for i, m in enumerate(backbone.sa_layers)]
+    # fp_layers.0 is the deepest: level 4 onto level 3
+    fps = [(f'FP{4 - i}', m) for i, m in enumerate(backbone.fp_layers)]
+    roi_sa = [(f'RoI SA{i + 1}', m) for i, m in enumerate(head.sa_layers)]
+    med = forward_split(
+        torch, det, points,
+        modules=levels + fps + roi_sa + [('RoI FCs', m) for m in head.fc_heads],
+        functions=((roi_head_utils, 'proposal_layer', ['proposal layer']),
+                   (pointrcnn_head, 'roipoint_pool3d', ['RoI pool'])))
+    sa = sum(med[k] for k, _ in levels)
+    fp = sum(med[k] for k, _ in fps)
+    roi = sum(med[k] for k, _ in roi_sa)
+    print(f'PointRCNN forward: backbone {med["backbone_3d"]:.2f} ms = SA '
+          f'{sa:.2f} + FP {fp:.2f} + the rest '
+          f'{med["backbone_3d"] - sa - fp:.2f}; point head '
+          f'{med["point_head"]:.2f}; RoI head {med["roi_head"]:.2f} = proposal '
+          f'layer {med["proposal layer"]:.2f} + RoI pool {med["RoI pool"]:.2f} + '
+          f'RoI SA {roi:.2f} + FCs {med["RoI FCs"]:.2f} + the rest '
+          f'{med["roi_head"] - med["proposal layer"] - med["RoI pool"] - roi - med["RoI FCs"]:.2f}',
+          flush=True)
+    return med
+
+
+def pointrcnn_step_split(torch, trainer, batch):
+    """The PointRCNN step split, with the point targets, the proposal layer
+    (its NMS apart), the RoI targets and the RoI point pool timed inside the
+    forward."""
+    from lidardetection_tpu_torch.models.dense_heads import point_head
+    from lidardetection_tpu_torch.models.roi_heads import (
+        pointrcnn_head, roi_head_utils,
+    )
+
+    split = step_split(torch, trainer, batch, functions=(
+        (point_head, 'assign_point_targets', 'point targets'),
+        (roi_head_utils, 'proposal_layer', 'proposal layer'),
+        (roi_head_utils, 'nms_bev_batched', 'proposal NMS'),
+        (roi_head_utils, 'assign_roi_targets', 'RoI targets'),
+        (pointrcnn_head, 'roipoint_pool3d', 'RoI pool')))
+    step = split['forward'] + split['backward'] + split['optimizer']
+    print(f'PointRCNN step: {step:.2f} ms split; the proposal layer '
+          f'{split["proposal layer"]:.2f} (its NMS {split["proposal NMS"]:.2f}), '
+          f'the targets {split["point targets"] + split["RoI targets"]:.2f}, '
+          f'the RoI pool {split["RoI pool"]:.2f} ms (forward)', flush=True)
+    return split
+
+
 def main():
     import torch
 
@@ -2408,8 +2548,9 @@ def main():
         """Detector with live NMS candidates, warmed up, then the main
         path: returns it, its clouds and the launch counts of the run."""
         det = Detector(cfg_file, device='cuda', seed=SEED)
-        with torch.no_grad():
-            det.model.dense_head.conv_cls_bias.zero_()
+        if det.model.dense_head is not None:
+            with torch.no_grad():
+                det.model.dense_head.conv_cls_bias.zero_()
         clouds = make_clouds(det, n_requests + 2, SEED)
         for points in clouds[:2]:  # warm-up: cuDNN plans, allocator
             det.postprocess(det.forward(det.make_batch([points])))
@@ -2463,6 +2604,23 @@ def main():
     profiled.append((det, clouds[0]))
     del det
 
+    print('== PointRCNN ==', flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    # 2 K5 a request: the first two set abstraction levels (16384 and 4096
+    # sources) take the grid query, the others and the RoI head's the
+    # brute-force one
+    det, clouds, launches_pointrcnn = served(
+        CFG_POINTRCNN, N_REQUESTS_POINTRCNN,
+        dict(zip(wrappers, (0, 0, 0, 0, 2))), None)
+    print(f'PointRCNN serving peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB (warm-up and '
+          'timed requests)', flush=True)
+    k5_pointrcnn, k5_pointrcnn_err = pointrcnn_kernel_phase(torch, det)
+    pointrcnn_split(torch, det, clouds[0])
+    compare_plain_phase(torch, det, CFG_POINTRCNN, clouds[0], wrappers)
+    profiled.append((det, clouds[0]))
+    del det
+
     def trained(cfg_file, seed, per_step, earlier, schedule_steps=None):
         """Trainer at full width, its batches, and the launch counts of
         the timed steps of the training main path. The one-cycle schedule
@@ -2471,9 +2629,11 @@ def main():
         trainer = Trainer(cfg_file, device='cuda', seed=SEED,
                           total_steps=schedule_steps or n_steps)
         batches, make_ms = train_batches(trainer, n_steps, seed)
-        print(f'make_batch B={train_batch_size(trainer)} (host voxelization at the train cap '
-              f'of {trainer.max_voxels} and the copy): p50 {make_ms:.2f} ms',
-              flush=True)
+        what = f'voxelization at the train cap of {trainer.max_voxels}' \
+            if trainer.vox is not None else \
+            f'point sampling to {trainer.max_points} and shuffling'
+        print(f'make_batch B={train_batch_size(trainer)} (host {what} and the '
+              f'copy): p50 {make_ms:.2f} ms', flush=True)
         return trainer, batches, train_phase(torch, trainer, batches,
                                              per_step, earlier)
 
@@ -2530,6 +2690,18 @@ def main():
     trainer_parta2, batch_parta2 = trainer, batches[-1]
     del trainer, batches
 
+    print('== PointRCNN training ==', flush=True)
+    # 2 K5 a step (forward only: the ball query has no gradient); a run's
+    # first learning rate, as for PV-RCNN
+    trainer, batches, launches_train_pointrcnn = trained(
+        CFG_POINTRCNN, SEED + 1000, dict(zip(wrappers, (0, 0, 0, 0, 2))),
+        None, schedule_steps=1000)
+    pointrcnn_step_split(torch, trainer, batches[-1])
+    reproducibility_phase(torch, trainer, batches[-1])
+    compare_train_phase(torch, trainer, CFG_POINTRCNN, batches[-1], wrappers)
+    trainer_pointrcnn, batch_pointrcnn = trainer, batches[-1]
+    del trainer, batches
+
     print('== evaluation ==', flush=True)
     launches_eval, annos, dataset = eval_phase(
         torch, CFG, dict(zip(wrappers, (1, 1, 0, 0, 0))))
@@ -2542,6 +2714,9 @@ def main():
         torch, CFG_PARTA2, dict(zip(wrappers, (0, 1, 28, 0, 0))))
     evals['PartA2Net'] = (dataset, annos)
     bucketed_eval_phase(torch, CFG_PARTA2)
+    launches_eval_pointrcnn, annos, dataset = eval_phase(
+        torch, CFG_POINTRCNN, dict(zip(wrappers, (0, 0, 0, 0, 2))))
+    evals['PointRCNN'] = (dataset, annos)
     protocol_phase(evals)
     precise_bn_phase(torch)
 
@@ -2552,21 +2727,26 @@ def main():
     for each, batch in ((trainer_pillar, batch_pillar),
                         (trainer_second, batch_second),
                         (trainer_pvrcnn, batch_pvrcnn),
-                        (trainer_parta2, batch_parta2)):
+                        (trainer_parta2, batch_parta2),
+                        (trainer_pointrcnn, batch_pointrcnn)):
         profile_run(torch, f'{each.cfg["MODEL"]["NAME"]} training step',
                     lambda: each.step(batch))
 
-    # launches: the sum over the eleven main paths' runs, each counted from 0
+    # launches: the sum over the fourteen main paths' runs, each counted
+    # from 0
     runs = {'PointPillar serving': launches, 'SECONDNet serving': launches_second,
             'PVRCNN serving': launches_pvrcnn,
             'PartA2Net serving': launches_parta2,
+            'PointRCNN serving': launches_pointrcnn,
             'PointPillar training': launches_train,
             'SECONDNet training': launches_train_second,
             'PVRCNN training': launches_train_pvrcnn,
             'PartA2Net training': launches_train_parta2,
+            'PointRCNN training': launches_train_pointrcnn,
             'PointPillar eval': launches_eval,
             'SECONDNet eval': launches_eval_second,
-            'PartA2Net eval': launches_eval_parta2}
+            'PartA2Net eval': launches_eval_parta2,
+            'PointRCNN eval': launches_eval_pointrcnn}
     # Part-A²'s per-layer rows on a line of their own, its totals in the
     # kernels line
     parta2_rows = {'K3 request': k3_parta2.pop('layers'),
@@ -2575,6 +2755,9 @@ def main():
     print(json.dumps({'parta2_layers': parta2_rows}), flush=True)
     k3['parta2'] = {**k3_parta2, **k3_parta2_step}
     k4['parta2'] = k4_parta2
+    # K5 at PointRCNN's two levels: its rows beside PV-RCNN's five sources
+    k5['pointrcnn'] = k5_pointrcnn
+    k5['max_abs_err'] = max(k5['max_abs_err'], k5_pointrcnn_err)
     k3['max_abs_err'] = max(k3['max_abs_err'], k3_parta2['max_abs_err'])
     k4['max_abs_err'] = max(k4['max_abs_err'], k4_parta2['max_abs_err'])
     kernels = [k1, k2, k3, k4, k5]

@@ -75,21 +75,24 @@ def cfg_from_yaml_file(cfg_file, config=None):
 
 
 def voxel_processor_cfg(data_cfg):
-    """The DATA_PROCESSOR entry that voxelizes (VOXEL_SIZE, capacities)."""
+    """The DATA_PROCESSOR entry that voxelizes (VOXEL_SIZE, capacities), or
+    None for a point-based config (PointRCNN), which has none."""
     for p in data_cfg['DATA_PROCESSOR']:
         if p['NAME'] == 'transform_points_to_voxels':
             return p
-    raise NotImplementedError(
-        'configs without a voxelizer (point-based PointRCNN) are not ported '
-        'yet: see ROADMAP.md queue 1, "PointRCNN"')
+    return None
 
 
 def raw_point_capacity(cfg):
     """DATA_CONFIG.MAX_POINTS when the model reads the raw points (a PFE,
-    PV-RCNN's VSA: ``points`` and ``num_points`` padded to it, as the JAX
-    package's data processor pads them), else None: Part-A²'s point head
-    reads the UNet's voxel centres, not the raw points."""
-    if not cfg['MODEL'].get('PFE'):
+    PV-RCNN's VSA, or a point backbone, PointRCNN's PointNet2MSG:
+    ``points`` and ``num_points`` padded to it, as the JAX package's data
+    processor pads them), else None: Part-A²'s point head reads the UNet's
+    voxel centres, not the raw points."""
+    model = cfg['MODEL']
+    reads_points = model.get('PFE') or (
+        model.get('BACKBONE_3D') and model['BACKBONE_3D']['NAME'] == 'PointNet2MSG')
+    if not reads_points:
         return None
     return int(cfg['DATA_CONFIG']['MAX_POINTS'])
 
@@ -105,18 +108,22 @@ def dataset_info(data_cfg):
     """Static facts that ``build_network`` needs, from a DATA_CONFIG.
 
     Same keys and values as the JAX package's ``DatasetTemplate.dataset_info``
-    (float32-rounded range and voxel size, as its data processor holds them).
+    (float32-rounded range and voxel size, as its data processor holds them;
+    grid_size and voxel_size None for a config with no voxelizer).
     """
     pc_range = np.asarray(data_cfg['POINT_CLOUD_RANGE'], np.float32)
-    voxel_size = np.asarray(voxel_processor_cfg(data_cfg)['VOXEL_SIZE'],
-                            np.float32)
     encoding = data_cfg['POINT_FEATURE_ENCODING']
     if encoding['encoding_type'] != 'absolute_coordinates_encoding':
         raise NotImplementedError(encoding['encoding_type'])
+    vox = voxel_processor_cfg(data_cfg)
+    grid_size = voxel_size = None
+    if vox is not None:
+        vsz = np.asarray(vox['VOXEL_SIZE'], np.float32)
+        grid_size = tuple(int(g) for g in grid_size_from_range(pc_range, vsz))
+        voxel_size = tuple(float(v) for v in vsz)
     return {
-        'grid_size': tuple(int(g) for g in
-                           grid_size_from_range(pc_range, voxel_size)),
-        'voxel_size': tuple(float(v) for v in voxel_size),
+        'grid_size': grid_size,
+        'voxel_size': voxel_size,
         'point_cloud_range': tuple(float(x) for x in pc_range),
         'num_point_features': len(encoding['used_feature_list']),
     }

@@ -1,5 +1,5 @@
-"""flax variables of the JAX PointPillar, SECOND, PV-RCNN or Part-A² ->
-this package's ``state_dict``.
+"""flax variables of the JAX PointPillar, SECOND, PV-RCNN, Part-A² or
+PointRCNN -> this package's ``state_dict``.
 
 Input: the flax ``params`` and ``batch_stats`` trees as nested dicts of
 numpy arrays (``jax.device_get`` of the JAX package's variables); no JAX is
@@ -13,6 +13,8 @@ needed here. Names map one to one except:
     a sparse layer's ``kernel`` (K, C_in, C_out) keeps its name and layout;
     its ``MaskedBatchNorm_0`` -> ``bn``;
   * the point-based modules: ``PointnetSAModuleMSG_<n>`` -> ``sa_layers.<n>``,
+    ``PointnetFPModule_<n>`` -> ``fp_layers.<n>`` (creation order: the
+    deepest level first), ``ConvMLP_<n>`` -> ``conv_mlps.<n>``,
     ``SharedMLP_<n>`` -> ``mlps.<n>``, ``FCHead_<n>`` -> ``fc_heads.<n>``,
     ``pre_proj_<i>`` / ``xyz_proj_<i>`` / ``pre_bn_<i>`` -> ``pre_proj.<i>`` /
     ``xyz_proj.<i>`` / ``pre_bn.<i>``, ``RoIGridPool_0`` -> ``roi_grid_pool``,
@@ -45,6 +47,7 @@ def _flatten(tree, prefix=()):
 
 _SCOPES = {'ConvBNReLU': 'units', 'SparseConvLayer': 'convs',
            'SparseBasicBlock': 'blocks', 'PointnetSAModuleMSG': 'sa_layers',
+           'PointnetFPModule': 'fp_layers', 'ConvMLP': 'conv_mlps',
            'SharedMLP': 'mlps', 'FCHead': 'fc_heads', 'Dense': 'dense',
            'pre_proj': 'pre_proj', 'xyz_proj': 'xyz_proj', 'pre_bn': 'pre_bn',
            'MaskedDenseSubMConv3d': 'sub_convs'}
@@ -52,7 +55,7 @@ _SINGLE = {'RoIGridPool_0': 'roi_grid_pool', 'FCLayers_0': 'fc_layers'}
 # Dense + BatchNorm stacks: their BatchNorms are the list `bn`, elsewhere a
 # module's one BatchNorm is `bn`
 _STACKS = ('pfe', 'roi_head', 'SharedMLP_', 'FCLayers_', 'FCHead_',
-           'cls_layers', 'part_reg_layers')
+           'ConvMLP_', 'cls_layers', 'part_reg_layers', 'box_layers')
 # a flax convolution kernel (*spatial, I, O) -> PyTorch's (O, I, *spatial)
 _TO_TORCH = {4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 _TO_FLAX = {4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}

@@ -1,4 +1,5 @@
-"""Anchor residual box coder (lidardetection_tpu/core/box_coders.py:14)."""
+"""Box coders (lidardetection_tpu/core/box_coders.py): the anchor residual
+coder (:14) and PointRCNN's point residual coder (:131-186)."""
 
 import dataclasses
 
@@ -72,11 +73,86 @@ class ResidualCoder:
         return torch.stack([xg, yg, zg, dxg, dyg, dzg, rg, *extras], dim=-1)
 
 
+@dataclasses.dataclass(frozen=True)
+class PointResidualCoder:
+    """8-dim box residuals of a point: the offsets over the class's mean
+    size (diagonal for x and y, height for z), the log size ratios, then
+    cos and sin of the heading. Classes are 1-indexed into ``mean_size``
+    (clipped into it); without ``use_mean_size`` the offsets are plain and
+    the sizes are logs."""
+
+    code_size: int = 8
+    use_mean_size: bool = True
+    mean_size: tuple = ()  # ((dx, dy, dz) per class)
+
+    @property
+    def full_code_size(self):
+        return self.code_size
+
+    def _sizes_for(self, classes):
+        mean = torch.tensor(self.mean_size, dtype=torch.float32,
+                            device=classes.device)
+        return mean[(classes.long() - 1).clamp(0, mean.shape[0] - 1)]
+
+    def encode(self, gt_boxes, points, gt_classes=None):
+        """gt_boxes (..., 7 + C), points (..., 3), gt_classes (...,) in [1,
+        num_class] -> (..., 8 + C)."""
+        gt_boxes = torch.cat([gt_boxes[..., :3], gt_boxes[..., 3:6].clamp(min=1e-5),
+                              gt_boxes[..., 6:]], dim=-1)
+        xg, yg, zg, dxg, dyg, dzg, rg = gt_boxes[..., :7].unbind(-1)
+        xa, ya, za = points[..., :3].unbind(-1)
+        if self.use_mean_size:
+            dxa, dya, dza = self._sizes_for(gt_classes).unbind(-1)
+            diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+            xt = (xg - xa) / diagonal
+            yt = (yg - ya) / diagonal
+            zt = (zg - za) / dza
+            dxt = torch.log(dxg / dxa)
+            dyt = torch.log(dyg / dya)
+            dzt = torch.log(dzg / dza)
+        else:
+            xt, yt, zt = xg - xa, yg - ya, zg - za
+            dxt, dyt, dzt = torch.log(dxg), torch.log(dyg), torch.log(dzg)
+        extras = [gt_boxes[..., 7 + i] for i in range(gt_boxes.shape[-1] - 7)]
+        return torch.stack([xt, yt, zt, dxt, dyt, dzt, torch.cos(rg),
+                            torch.sin(rg), *extras], dim=-1)
+
+    def decode(self, box_encodings, points, pred_classes=None):
+        """box_encodings (..., 8 + C), points (..., 3), pred_classes (...,)
+        -> boxes (..., 7 + C), the heading ``atan2(sin, cos)``."""
+        xt, yt, zt, dxt, dyt, dzt, cost, sint = box_encodings[..., :8].unbind(-1)
+        xa, ya, za = points[..., :3].unbind(-1)
+        if self.use_mean_size:
+            dxa, dya, dza = self._sizes_for(pred_classes).unbind(-1)
+            diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+            xg = xt * diagonal + xa
+            yg = yt * diagonal + ya
+            zg = zt * dza + za
+            dxg = torch.exp(dxt) * dxa
+            dyg = torch.exp(dyt) * dya
+            dzg = torch.exp(dzt) * dza
+        else:
+            xg, yg, zg = xt + xa, yt + ya, zt + za
+            dxg, dyg, dzg = torch.exp(dxt), torch.exp(dyt), torch.exp(dzt)
+        rg = torch.atan2(sint, cost)
+        extras = [box_encodings[..., 8 + i]
+                  for i in range(box_encodings.shape[-1] - 8)]
+        return torch.stack([xg, yg, zg, dxg, dyg, dzg, rg, *extras], dim=-1)
+
+
+_CODERS = {'ResidualCoder': ResidualCoder,
+           'PointResidualCoder': PointResidualCoder}
+
+
 def build_box_coder(name, **kwargs):
-    if name != 'ResidualCoder':
+    if name not in _CODERS:
         raise NotImplementedError(
             f'box coder {name} is not ported yet: see ROADMAP.md queue 1, '
-            '"PointRCNN" (PointResidualCoder, pointrcnn.yaml) and "Variants" '
-            '(pointrcnn_iou, PartA2_free)')
-    fields = {f.name for f in dataclasses.fields(ResidualCoder)}
-    return ResidualCoder(**{k: v for k, v in kwargs.items() if k in fields})
+            '"Variants" (pointrcnn_iou, PartA2_free)')
+    cls = _CODERS[name]
+    fields = {f.name for f in dataclasses.fields(cls)}
+    kwargs = {k: v for k, v in kwargs.items() if k in fields}
+    if 'mean_size' in kwargs:
+        kwargs['mean_size'] = tuple(tuple(float(v) for v in s)
+                                    for s in kwargs['mean_size'])
+    return cls(**kwargs)

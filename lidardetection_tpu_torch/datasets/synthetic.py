@@ -13,7 +13,8 @@ import numpy as np
 from ..config import dataset_info, raw_point_capacity, voxel_processor_cfg
 from ..core import np_geometry as npg
 from ..ops.sparse_plan import config_plan
-from ..ops.voxelize import build_batch
+from ..ops.voxelize import build_batch, build_point_batch
+from .processor.data_processor import mask_boxes_outside_range
 
 BUCKET_GRANULARITY = 4096  # lidardetection_tpu/datasets/__init__.py:49
 
@@ -112,24 +113,6 @@ def make_scene(rng, point_cloud_range, num_objects=8, points_per_obj=120,
     return points, np.array(gt_boxes, np.float32), np.array(gt_names)
 
 
-def boxes_in_range(boxes, limit_range, min_num_corners=1):
-    """(N, 7+) -> (N,) bool: boxes with at least `min_num_corners` of their
-    8 corners inside the range (the training processor's box filter)."""
-    if len(boxes) == 0:
-        return np.zeros(0, dtype=bool)
-    template = np.array([[x, y, z] for z in (-1, 1) for x, y in
-                         ((1, 1), (1, -1), (-1, -1), (-1, 1))], np.float32) / 2
-    corners = boxes[:, None, 3:6] * template[None]
-    ca, sa = np.cos(boxes[:, 6:7]), np.sin(boxes[:, 6:7])
-    corners = np.stack([corners[..., 0] * ca - corners[..., 1] * sa,
-                        corners[..., 0] * sa + corners[..., 1] * ca,
-                        corners[..., 2]], axis=-1) + boxes[:, None, 0:3]
-    limit_range = np.asarray(limit_range, np.float32)
-    inside = ((corners >= limit_range[0:3])
-              & (corners <= limit_range[3:6])).all(axis=2)
-    return inside.sum(axis=1) >= min_num_corners
-
-
 def pad_gt_boxes(gt_boxes, gt_names, class_names, point_cloud_range,
                  max_gt_boxes=64, in_range_only=True):
     """Ground truth of one scene: (max_gt_boxes, 8) float32, the 1-based
@@ -139,7 +122,8 @@ def pad_gt_boxes(gt_boxes, gt_names, class_names, point_cloud_range,
     ``DatasetTemplate.prepare_data`` does."""
     keep = np.array([n in class_names for n in gt_names], dtype=bool)
     if keep.any() and in_range_only:
-        keep[keep] = boxes_in_range(gt_boxes[keep], point_cloud_range)
+        keep[keep] = mask_boxes_outside_range(gt_boxes[keep],
+                                              point_cloud_range)
     classes = np.array([class_names.index(n) + 1 for n in gt_names[keep]],
                        np.float32)
     out = np.zeros((max_gt_boxes, 8), np.float32)
@@ -282,11 +266,14 @@ def build_test_loader(cfg, batch_size, num_scenes, seed=0):
     DATA_CONFIG.VOXEL_BUCKETING is false, the tables are cut to the
     batch's occupancy (`bucket_voxels`). Warns when a scene fills the cap:
     the table then keeps the first voxels in scan order, a spatially
-    biased crop."""
+    biased crop. A point-based config (PointRCNN) has no voxel table: its
+    clouds go through the test split's processors
+    (``ops/voxelize.py::build_point_batch``), the sample drawn from
+    ``RandomState([seed, *frame ids])``, so a batch is the same on every
+    pass."""
     data_cfg = cfg['DATA_CONFIG']
     info = dataset_info(data_cfg)
     vox = voxel_processor_cfg(data_cfg)
-    max_voxels = int(vox['MAX_NUMBER_OF_VOXELS']['test'])
     plan = config_plan(cfg, training=False)
     bucketing = bool(data_cfg.get('VOXEL_BUCKETING', True))
     dataset = SyntheticDataset(
@@ -294,7 +281,8 @@ def build_test_loader(cfg, batch_size, num_scenes, seed=0):
         seed=seed, max_gt_boxes=int(data_cfg.get('MAX_GT_BOXES', 64)),
         training=False)
 
-    def collate(items):
+    def voxels(items):
+        max_voxels = int(vox['MAX_NUMBER_OF_VOXELS']['test'])
         batch = build_batch([points for points, _, _ in items],
                             info['point_cloud_range'], info['voxel_size'],
                             int(vox['MAX_POINTS_PER_VOXEL']), max_voxels,
@@ -306,6 +294,17 @@ def build_test_loader(cfg, batch_size, num_scenes, seed=0):
                           RuntimeWarning, stacklevel=2)
         if bucketing:
             bucket_voxels(batch, plan)
+        return batch
+
+    def collate(items):
+        if vox is None:
+            batch = build_point_batch(
+                [points for points, _, _ in items], data_cfg['DATA_PROCESSOR'],
+                info['point_cloud_range'], raw_point_capacity(cfg),
+                training=False,
+                rng=np.random.RandomState([seed] + [i for _, _, i in items]))
+        else:
+            batch = voxels(items)
         batch['gt_boxes'] = np.stack([gt for _, gt, _ in items])
         batch['frame_id'] = np.array([i for _, _, i in items])
         batch['batch_size'] = len(items)

@@ -1,7 +1,7 @@
 """Evaluation loop (lidardetection_tpu/engine/evaluator.py:23).
 
-Batches run through the eval step (``parallel/train_step.py::
-make_eval_step``); the kept detections of each sample come back to the
+Batches (a voxel table, or a point-based config's sampled raw points)
+run through the eval step (``parallel/train_step.py::make_eval_step``); the kept detections of each sample come back to the
 host as numpy, become KITTI annos through the dataset's
 ``generate_prediction_dicts`` and are scored by its ``evaluation`` (the
 official protocol). A single process only: the distributed merge of the

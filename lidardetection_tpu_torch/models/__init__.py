@@ -16,7 +16,8 @@ def build_network(model_cfg, num_class, dataset_info, seed=0):
     name = model_cfg['NAME']
     if name in NOT_PORTED:
         raise not_ported(name)
-    if name not in ('PointPillar', 'SECONDNet', 'PVRCNN', 'PartA2Net'):
+    if name not in ('PointPillar', 'SECONDNet', 'PVRCNN', 'PartA2Net',
+                    'PointRCNN'):
         raise KeyError(f'unknown detector {name}')
     knobs = PointOpKnobs.from_config(model_cfg,
                                      dataset_info.get('point_cloud_range'))

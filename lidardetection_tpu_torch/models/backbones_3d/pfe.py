@@ -70,8 +70,8 @@ class VoxelSetAbstraction(nn.Module):
             return PointnetSAModuleMSG(
                 npoint=self.num_keypoints, radii=cfg['POOL_RADIUS'],
                 nsamples=cfg['NSAMPLE'], mlps=[list(m) for m in cfg['MLPS']],
-                in_channels=in_channels, knobs=knobs, dtype=dtype,
-                generator=generator)
+                in_channels=in_channels, zero_empty=True, knobs=knobs,
+                dtype=dtype, generator=generator)
 
         layers, self.sa_sources = [], []
         if 'raw_points' in self.sources:

@@ -1,8 +1,9 @@
-"""The point heads of PV-RCNN and Part-A² (lidardetection_tpu/models/
-dense_heads/point_head.py:20-110, :113-171, :236-318): ``FCLayers``,
-``PointHeadSimple`` (PV-RCNN's keypoint foreground head),
-``PointIntraPartOffsetHead`` (Part-A²'s foreground and intra-object part
-offsets), their point targets and losses.
+"""The point heads (lidardetection_tpu/models/dense_heads/point_head.py):
+``FCLayers``, ``PointHeadSimple`` (PV-RCNN's keypoint foreground head),
+``PointHeadBox`` (PointRCNN's first stage: foreground and a box a point)
+and ``PointIntraPartOffsetHead`` (Part-A²'s foreground and intra-object
+part offsets, and a box a point when its TARGET_CONFIG names a coder),
+their point targets and losses.
 
 Points are (B, N) padded batches; padding points are labelled -1
 (ignored), so they carry no loss weight.
@@ -12,6 +13,7 @@ import torch
 from torch import nn
 
 from ...core import losses
+from ...core.box_coders import build_box_coder
 from ...core.geometry import (
     enlarge_box3d, points_in_boxes_id, rotate_points_along_z,
 )
@@ -19,12 +21,17 @@ from ..layers import POINT_BN, Dense, MaskedBatchNorm
 
 
 def assign_point_targets(point_coords, point_valid, gt_boxes, extra_width,
-                         num_class, ret_part_labels=False):
+                         num_class, box_coder=None, ret_box_labels=False,
+                         ret_part_labels=False):
     """Foreground labels of points, the ``set_ignore_flag`` branch of
     point_head.py:20-66: a point inside a valid gt box takes its class (1
     when `num_class` is 1), a point inside only the box grown by
     `extra_width` is ignored (-1), any other point is background (0), and
     padding points are ignored.
+
+    With `ret_box_labels`, also each foreground point's box encoded by
+    `box_coder` against the point with the box's class (:54-57), and 0
+    for every other point.
 
     With `ret_part_labels`, also each foreground point's place in its box
     (:59-63): ``rotate(point - centre, -heading) / (dx, dy, dz) + 0.5``,
@@ -32,7 +39,8 @@ def assign_point_targets(point_coords, point_valid, gt_boxes, extra_width,
 
     Args: point_coords (B, N, 3); point_valid (B, N) bool; gt_boxes (B, M,
     8), the class last (0 = padding). Returns {'point_cls_labels': (B, N)
-    int64} and, with `ret_part_labels`, 'point_part_labels' (B, N, 3).
+    int64}, with `ret_box_labels` 'point_box_labels' (B, N, code) and
+    with `ret_part_labels` 'point_part_labels' (B, N, 3).
     """
     gt_valid = gt_boxes[..., -1] > 0
     box_id = points_in_boxes_id(point_coords, gt_boxes[..., :7], gt_valid)
@@ -48,10 +56,17 @@ def assign_point_targets(point_coords, point_valid, gt_boxes, extra_width,
     labels = torch.where(fg, cls_of_point, -ignore.long())
     out = {'point_cls_labels': torch.where(point_valid, labels,
                                            torch.full_like(labels, -1))}
+    if not (ret_box_labels or ret_part_labels):
+        return out
+    b, n = box_id.shape
+    matched = torch.gather(gt_boxes, 1, box_id.clamp(min=0)[..., None]
+                           .expand(-1, -1, gt_boxes.shape[-1]))
+    if ret_box_labels:
+        enc = box_coder.encode(matched[..., :7], point_coords,
+                               matched[..., -1].long())
+        out['point_box_labels'] = torch.where(fg[..., None], enc,
+                                              torch.zeros_like(enc))
     if ret_part_labels:
-        b, n = box_id.shape
-        matched = torch.gather(gt_boxes, 1, box_id.clamp(min=0)[..., None]
-                               .expand(-1, -1, gt_boxes.shape[-1]))
         local = rotate_points_along_z(
             (point_coords - matched[..., 0:3]).reshape(b * n, 1, 3),
             -matched[..., 6].reshape(-1)).reshape(b, n, 3)
@@ -76,6 +91,21 @@ def point_cls_loss(point_cls_preds, point_cls_labels, num_class, weight=1.0):
     loss = losses.sigmoid_focal_loss(preds[None], one_hot[None],
                                      cls_weights[None]).sum()
     return loss * weight, pos_normalizer
+
+
+def point_box_loss(point_box_preds, point_box_labels, point_cls_labels,
+                   code_weights=None, weight=1.0):
+    """Smooth-L1 box loss over the foreground points, each weighted 1 over
+    their count (point_head.py:84-95)."""
+    labels = point_cls_labels.reshape(-1)
+    preds = point_box_preds.reshape(-1, point_box_preds.shape[-1])
+    targets = point_box_labels.reshape(-1, preds.shape[-1])
+    pos = (labels > 0).float()
+    reg_weights = pos / pos.sum().clamp(min=1.0)
+    loss = losses.weighted_smooth_l1_loss(
+        preds[None], targets[None], reg_weights[None],
+        code_weights=code_weights).sum()
+    return loss * weight
 
 
 def point_part_loss(point_part_preds, point_part_labels, point_cls_labels,
@@ -156,28 +186,100 @@ class PointHeadSimple(nn.Module):
         return loss, {'point_loss_cls': loss, 'point_pos_num': pos}
 
 
+def decoded_point_boxes(out, cls_preds, box_preds, box_coder, valid):
+    """Puts in `out` the point boxes for the proposal layer
+    (point_head.py:211-219): each point's box decoded with its best class
+    (``argmax + 1``, in training too), its logits, and the validity
+    mask."""
+    out.update(batch_cls_preds=cls_preds,
+               batch_box_preds=box_coder.decode(box_preds, out['point_coords'],
+                                                cls_preds.argmax(-1) + 1),
+               batch_valid_preds=valid, cls_preds_normalized=False)
+
+
+class PointHeadBox(nn.Module):
+    """PointRCNN's first stage (point_head.py:174-233): per point the class
+    logits (``cls_layers``) and a box (``box_layers``, decoded by the
+    TARGET_CONFIG's coder), ``point_cls_scores`` = max over classes of
+    the sigmoid. The decoded boxes go to the RoI head in training too
+    (``predict_boxes_when_training``). In training it also emits
+    ``point_head_fwd``: the logits, the box residuals and the targets."""
+
+    def __init__(self, model_cfg, num_class, input_channels,
+                 predict_boxes_when_training=True, dtype=None, generator=None):
+        super().__init__()
+        self.model_cfg, self.num_class = model_cfg, num_class
+        self.predict_boxes_when_training = predict_boxes_when_training
+        tc = model_cfg['TARGET_CONFIG']
+        self.box_coder = build_box_coder(tc['BOX_CODER'],
+                                         **tc.get('BOX_CODER_CONFIG', {}))
+        self.cls_layers = FCLayers(input_channels, model_cfg['CLS_FC'],
+                                   num_class, dtype=dtype, generator=generator)
+        self.box_layers = FCLayers(input_channels, model_cfg['REG_FC'],
+                                   self.box_coder.full_code_size, dtype=dtype,
+                                   generator=generator)
+
+    def forward(self, batch):
+        feats, valid = batch['point_features'], batch['point_valid']
+        cls_preds = self.cls_layers(feats, valid)
+        box_preds = self.box_layers(feats, valid)
+        out = {**batch, 'point_cls_scores': torch.sigmoid(cls_preds).amax(-1)}
+        if self.training:
+            targets = assign_point_targets(
+                batch['point_coords'], valid, batch['gt_boxes'],
+                self.model_cfg['TARGET_CONFIG']['GT_EXTRA_WIDTH'],
+                self.num_class, box_coder=self.box_coder, ret_box_labels=True)
+            out['point_head_fwd'] = {'point_cls_preds': cls_preds,
+                                     'point_box_preds': box_preds, **targets}
+        if not self.training or self.predict_boxes_when_training:
+            decoded_point_boxes(out, cls_preds, box_preds, self.box_coder,
+                                valid)
+        return out
+
+    def loss(self, fwd):
+        w = self.model_cfg['LOSS_CONFIG']['LOSS_WEIGHTS']
+        cls_loss, pos = point_cls_loss(fwd['point_cls_preds'],
+                                       fwd['point_cls_labels'], self.num_class,
+                                       w['point_cls_weight'])
+        box_loss = point_box_loss(fwd['point_box_preds'],
+                                  fwd['point_box_labels'],
+                                  fwd['point_cls_labels'],
+                                  code_weights=w.get('code_weights'),
+                                  weight=w['point_box_weight'])
+        return cls_loss + box_loss, {'point_loss_cls': cls_loss,
+                                     'point_loss_box': box_loss,
+                                     'point_pos_num': pos}
+
+
 class PointIntraPartOffsetHead(nn.Module):
     """Part-A²'s point head (point_head.py:236-318): per voxel centre the
     foreground score, ``point_cls_scores`` = max over classes of the
     sigmoid of ``cls_layers``, and the part offsets, ``point_part_offset``
     = sigmoid of ``part_reg_layers`` (both ``FCLayers``; PartA2.yaml's
     empty CLS_FC and PART_FC make each one Dense from the 16 UNet
-    channels). In training it also emits ``point_head_fwd``: the logits,
-    the foreground labels and the part targets, for `loss`. The point box
-    branch (a TARGET_CONFIG.BOX_CODER) is not ported: PointRCNN's item of
-    ROADMAP.md queue 1."""
+    channels). With a TARGET_CONFIG.BOX_CODER also a box a point
+    (``box_layers``), decoded for the proposal layer as ``PointHeadBox``
+    decodes it when ``predict_boxes_when_training`` or in eval. In
+    training it also emits ``point_head_fwd``: the logits, the foreground
+    labels, the part targets (and box targets), for `loss`."""
 
-    def __init__(self, model_cfg, num_class, input_channels, dtype=None,
+    def __init__(self, model_cfg, num_class, input_channels,
+                 predict_boxes_when_training=False, dtype=None,
                  generator=None):
         super().__init__()
-        if model_cfg['TARGET_CONFIG'].get('BOX_CODER'):
-            from ..detectors.detector3d import not_ported
-            raise not_ported('PointHeadBox')
         self.model_cfg, self.num_class = model_cfg, num_class
+        self.predict_boxes_when_training = predict_boxes_when_training
+        tc = model_cfg['TARGET_CONFIG']
+        self.box_coder = build_box_coder(
+            tc['BOX_CODER'], **tc.get('BOX_CODER_CONFIG', {})) \
+            if tc.get('BOX_CODER') else None
         self.cls_layers = FCLayers(input_channels, model_cfg['CLS_FC'],
                                    num_class, dtype=dtype, generator=generator)
         self.part_reg_layers = FCLayers(input_channels, model_cfg['PART_FC'],
                                         3, dtype=dtype, generator=generator)
+        self.box_layers = None if self.box_coder is None else FCLayers(
+            input_channels, model_cfg['REG_FC'], self.box_coder.full_code_size,
+            dtype=dtype, generator=generator)
 
     def forward(self, batch):
         feats, valid = batch['point_features'], batch['point_valid']
@@ -185,13 +287,22 @@ class PointIntraPartOffsetHead(nn.Module):
         part_preds = self.part_reg_layers(feats, valid)
         out = {**batch, 'point_cls_scores': torch.sigmoid(cls_preds).amax(-1),
                'point_part_offset': torch.sigmoid(part_preds)}
+        box_preds = None if self.box_layers is None \
+            else self.box_layers(feats, valid)
         if self.training:
             targets = assign_point_targets(
                 batch['point_coords'], valid, batch['gt_boxes'],
                 self.model_cfg['TARGET_CONFIG']['GT_EXTRA_WIDTH'],
-                self.num_class, ret_part_labels=True)
+                self.num_class, box_coder=self.box_coder,
+                ret_box_labels=box_preds is not None, ret_part_labels=True)
             out['point_head_fwd'] = {'point_cls_preds': cls_preds,
                                      'point_part_preds': part_preds, **targets}
+            if box_preds is not None:
+                out['point_head_fwd']['point_box_preds'] = box_preds
+        if box_preds is not None and (not self.training
+                                      or self.predict_boxes_when_training):
+            decoded_point_boxes(out, cls_preds, box_preds, self.box_coder,
+                                valid)
         return out
 
     def loss(self, fwd):
@@ -203,6 +314,13 @@ class PointIntraPartOffsetHead(nn.Module):
                                     fwd['point_part_labels'],
                                     fwd['point_cls_labels'],
                                     w['point_part_weight'])
-        return cls_loss + part_loss, {'point_loss_cls': cls_loss,
-                                      'point_loss_part': part_loss,
-                                      'point_pos_num': pos}
+        tb = {'point_loss_cls': cls_loss, 'point_loss_part': part_loss,
+              'point_pos_num': pos}
+        total = cls_loss + part_loss
+        if 'point_box_preds' in fwd:
+            tb['point_loss_box'] = point_box_loss(
+                fwd['point_box_preds'], fwd['point_box_labels'],
+                fwd['point_cls_labels'], code_weights=w.get('code_weights'),
+                weight=w.get('point_box_weight', 1.0))
+            total = total + tb['point_loss_box']
+        return total, tb

@@ -1,6 +1,7 @@
 """PointNet++ point ops in fixed-capacity batches (counterpart of
 lidardetection_tpu/ops/pointnet2.py): farthest point sampling, ball query,
-grouping, and the RoI-grid candidate selection.
+grouping, the RoI-grid candidate selection, and the feature propagation's
+three nearest neighbours and their interpolation.
 
 Layout as in the JAX package: padded (B, N, ...) batches with valid counts.
 
@@ -42,6 +43,7 @@ _BIG = 1e10
 _GRID_MIN_SOURCES = 4096
 NW = 4  # window blocks per run in the JAX package: runs hold <= 3 * cap rows
 _CENTER_CHUNK = 256  # brute-force ball query: centers per (M, N) distance block
+_THREE_NN_BLOCK = 1 << 26  # three_nn: entries of a (B, rows, N) distance block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -342,3 +344,45 @@ def group_points(features, idx):
     rows = torch.gather(features, 1, idx.reshape(b, m * ns, 1).long().expand(
         -1, -1, features.shape[-1]))
     return rows.reshape(b, m, ns, features.shape[-1])
+
+
+def three_nn(query, src, src_num):
+    """The 3 nearest of the first ``src_num`` sources to each query point
+    (pointnet2.py:742-771): squared distances by ``_pairwise_d2``, padding
+    sources at 1e10, then three passes of a first-index ``argmin``, each
+    setting its pick to 1e10 for the next, so ties go to the lowest index.
+    The (B, M, N) distances are built in blocks of query rows.
+
+    Args: query (B, M, 3); src (B, N, 3); src_num (B,).
+    Returns dists (B, M, 3) float32, the square roots, and idx (B, M, 3)
+    int64.
+    """
+    b, m, _ = query.shape
+    n = src.shape[1]
+    valid = (torch.arange(n, device=src.device) < src_num[:, None])[:, None, :]
+    rows = max(1, _THREE_NN_BLOCK // max(b * n, 1))
+    dists, idxs = [], []
+    for m0 in range(0, m, rows):
+        d2 = torch.where(valid, _pairwise_d2(query[:, m0:m0 + rows], src),
+                         _BIG)
+        d, i = [], []
+        for _ in range(3):
+            i.append(d2.argmin(-1, keepdim=True))
+            d.append(torch.gather(d2, -1, i[-1]))
+            d2.scatter_(-1, i[-1], _BIG)
+        dists.append(torch.cat(d, -1))
+        idxs.append(torch.cat(i, -1))
+    return torch.sqrt(torch.cat(dists, 1).clamp(min=0.0)), torch.cat(idxs, 1)
+
+
+def three_nn_weights(dists):
+    """Inverse-distance weights ``(1 / (d + 1e-8)) / sum`` (pointnet2.py:783)."""
+    recip = 1.0 / (dists + 1e-8)
+    return recip / recip.sum(-1, keepdim=True)
+
+
+def three_interpolate(features, idx, weight):
+    """Weighted sum of the 3 neighbours' features (pointnet2.py:774-780):
+    (B, N, C), (B, M, 3), (B, M, 3) -> (B, M, C). bf16 features times the
+    float32 weights promote to float32, as in the JAX package."""
+    return (group_points(features, idx) * weight[..., None]).sum(2)

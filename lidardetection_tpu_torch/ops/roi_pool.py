@@ -1,13 +1,13 @@
-"""RoI-aware pooling of points into a grid per RoI, in plain PyTorch
-(lidardetection_tpu/ops/roi_pool.py:64-168; the JAX package computes it
-in XLA, outside any Pallas kernel, and so does the port until a card
-measurement says it needs a kernel).
+"""RoI point pooling, in plain PyTorch (lidardetection_tpu/ops/roi_pool.py;
+the JAX package computes it in XLA, outside any Pallas kernel, and so does
+the port until a card measurement says it needs a kernel).
 
-Two stages, as in the JAX package: ``roi_point_sample`` picks the first
-``cap`` in-box points of each RoI in index order, once for both of
-Part-A²'s pools; ``roiaware_pool3d`` puts each sampled point in its cell
-of the RoI's (out_x, out_y, out_z) grid and reduces the cells by max or
-by mean.
+``roi_point_sample`` picks the first ``cap`` in-box points of each RoI in
+index order. PointRCNN's ``roipoint_pool3d`` gathers them with their
+features, repeating a RoI's hits to fill its slots. Part-A²'s
+``roiaware_pool3d`` puts each sampled point (one sample for both of its
+pools) in its cell of the RoI's (out_x, out_y, out_z) grid and reduces the
+cells by max or by mean.
 
 The forward is deterministic on the card: the max of a cell does not
 depend on the order it is taken in, and the mean's sums run cell by cell
@@ -51,6 +51,32 @@ def roi_point_sample(points, point_num, rois, roi_valid, cap):
     count = inside.sum(-1, keepdim=True)
     hit = torch.arange(cap, device=points.device) < count
     return torch.where(hit, idx[..., :cap], 0), hit
+
+
+def roipoint_pool3d(points, point_features, point_num, rois, roi_valid,
+                    num_sampled_points=512):
+    """A fixed number of in-RoI points a box with their features (:15-61,
+    the reference's roipoint_pool3d_kernel.cu:38-130): the RoI's first
+    `num_sampled_points` in-box points in index order, slot ``k`` past its
+    hit count repeating slot ``k % count``; an empty or invalid RoI gives
+    zeros and is flagged.
+
+    Args: points (B, N, 3); point_features (B, N, C); point_num (B,);
+    rois (B, R, 7+); roi_valid (B, R) bool.
+    Returns pooled (B, R, S, 3 + C) of ``[xyz, features]`` and empty (B,
+    R) bool.
+    """
+    s = int(num_sampled_points)
+    idx, hit = roi_point_sample(points, point_num, rois, roi_valid, s)
+    cnt = hit.sum(-1, keepdim=True)
+    empty = cnt[..., 0] == 0
+    slots = torch.arange(s, device=points.device)
+    idx = torch.gather(idx, 2, slots % cnt.clamp(min=1))
+    data = torch.cat([points, point_features], dim=-1)
+    b, r = idx.shape[:2]
+    pooled = torch.gather(data, 1, idx.reshape(b, r * s, 1).expand(
+        -1, -1, data.shape[-1])).reshape(b, r, s, -1)
+    return pooled.masked_fill(empty[..., None, None], 0.0), empty
 
 
 def pool_cells(points, rois, sample, out_size):

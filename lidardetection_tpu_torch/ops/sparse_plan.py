@@ -187,10 +187,12 @@ def config_plan(cfg, training):
     ``DatasetTemplate.set_sparse_plan`` derives it (datasets/dataset.py:
     57-68): the backbone's plan over the voxel table at the split's cap,
     with the transposed rulebooks in training; None for a model without a
-    sparse 3D backbone."""
+    sparse 3D backbone or without a voxelizer."""
     data_cfg = cfg['DATA_CONFIG']
-    cap = voxel_processor_cfg(data_cfg)['MAX_NUMBER_OF_VOXELS'][
-        'train' if training else 'test']
+    vox = voxel_processor_cfg(data_cfg)
+    if vox is None:
+        return None
+    cap = vox['MAX_NUMBER_OF_VOXELS']['train' if training else 'test']
     return backbone_plan(cfg['MODEL'], dataset_info(data_cfg)['grid_size'],
                          int(cap), training=training)
 

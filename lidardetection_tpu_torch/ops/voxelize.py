@@ -16,6 +16,9 @@ for (``native.plain_host()`` or ``LIDARDET_TORCH_PLAIN_HOST=1``). Both give
 the same arrays bit for bit. The TPU scatter's tile histogram
 (``bev_tile_starts``) has no place here: the CUDA scatter writes each row
 straight to its key.
+
+A point-based config (PointRCNN) has no voxelizer: `build_point_batch`
+samples and pads its raw points instead.
 """
 
 import os
@@ -25,14 +28,10 @@ import numpy as np
 
 from .. import native
 from ..config import grid_size_from_range
+from ..datasets.processor.data_processor import (
+    mask_points_by_range, pad_points, process_points,
+)
 from .sparse_plan import build_host_rulebooks
-
-
-def mask_points_by_range(points, limit_range):
-    """(N,) bool: x and y inside the range, bounds included (the
-    ``mask_points_and_boxes_outside_range`` processor's point filter)."""
-    return ((points[:, 0] >= limit_range[0]) & (points[:, 0] <= limit_range[3])
-            & (points[:, 1] >= limit_range[1]) & (points[:, 1] <= limit_range[4]))
 
 
 def voxelize_np(points, point_cloud_range, voxel_size, max_points_per_voxel,
@@ -147,11 +146,28 @@ def build_batch(points_list, point_cloud_range, voxel_size,
         batch.update({key: np.stack([rb[key] for rb in scans])
                       for key in scans[0]})
     if max_points is not None:
-        width = max(c.shape[1] for c in clouds)
-        padded = np.zeros((len(clouds), max_points, width), np.float32)
-        num = np.zeros(len(clouds), np.int32)
-        for i, c in enumerate(clouds):
-            num[i] = min(len(c), max_points)
-            padded[i, :num[i]] = c[:num[i]]
-        batch.update(points=padded, num_points=num)
+        batch.update(stack_points(clouds, max_points))
     return batch
+
+
+def stack_points(clouds, max_points):
+    """points (B, max_points, C) float32, each cloud's first max_points
+    zero-padded, and num_points (B,) int32."""
+    padded, num = zip(*(pad_points(np.asarray(c, np.float32), max_points)
+                        for c in clouds))
+    return {'points': np.stack(padded), 'num_points': np.asarray(num, np.int32)}
+
+
+def build_point_batch(points_list, processor_cfgs, point_cloud_range,
+                      max_points, training, rng):
+    """The batch of a point-based config (PointRCNN): each cloud through
+    the config's DATA_PROCESSOR chain (`data_processor.process_points`:
+    the range mask, the near/far-aware sample, the shuffle where the
+    split enables it, with `rng`'s draws in cloud order), then padded to
+    `max_points`. Returns numpy points (B, max_points, C) float32 and
+    num_points (B,) int32; no voxels."""
+    pc_range = np.asarray(point_cloud_range, np.float32)
+    clouds = [process_points(np.asarray(points, np.float32), processor_cfgs,
+                             pc_range, training, rng)
+              for points in points_list]
+    return stack_points(clouds, max_points)

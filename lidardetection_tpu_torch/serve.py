@@ -1,5 +1,5 @@
-"""Serving (PointPillar, SECOND, PV-RCNN and Part-A²): the port's entry
-point.
+"""Serving (PointPillar, SECOND, PV-RCNN, Part-A² and PointRCNN): the
+port's entry point.
 
 ``Detector(cfg_file, device="cuda", seed=0, state_dict=None)`` builds the
 detector of a YAML config (or of a loaded config) on the card; parameters
@@ -8,7 +8,10 @@ are drawn from ``seed`` unless a ``state_dict`` (for example from
 answers one request per cloud (batch 1, as tools/inference.py serves) and
 returns a list of ``{boxes (n, 7), scores (n,), labels (n,)}`` numpy dicts.
 A detector whose slots read raw points (PV-RCNN) gets them in its batch,
-padded to DATA_CONFIG.MAX_POINTS; the others copy only the voxels.
+padded to DATA_CONFIG.MAX_POINTS; the others copy only the voxels. A
+point-based config (PointRCNN, no voxelizer) samples each cloud to its
+test NUM_POINTS (``ops/voxelize.py::build_point_batch``) with draws from
+an ``np.random.RandomState(seed)`` the detector keeps.
 
 A float32 config computes in float32 whatever the process's TF32 and
 matmul-precision flags are (``utils/precision.py``); a bf16 one leaves
@@ -23,6 +26,8 @@ CLI, answering requests on synthetic scenes made from ``--seed``:
         --cfg_file tools/cfgs/kitti_models/second.yaml --num_requests 8
     python -m lidardetection_tpu_torch.serve \\
         --cfg_file tools/cfgs/kitti_models/PartA2.yaml --num_requests 8
+    python -m lidardetection_tpu_torch.serve \\
+        --cfg_file tools/cfgs/kitti_models/pointrcnn.yaml --num_requests 8
 """
 
 import argparse
@@ -37,7 +42,7 @@ from .config import (
 from .datasets.synthetic import make_scene
 from .models import build_network
 from .models.detectors.post_processing import post_processing
-from .ops.voxelize import build_batch
+from .ops.voxelize import build_batch, build_point_batch
 from .utils.precision import full_f32
 
 
@@ -52,9 +57,8 @@ class Detector:
         self.device = device
         data_cfg = self.cfg['DATA_CONFIG']
         self.info = dataset_info(data_cfg)
-        vox = voxel_processor_cfg(data_cfg)
-        self.max_points_per_voxel = int(vox['MAX_POINTS_PER_VOXEL'])
-        self.max_voxels = int(vox['MAX_NUMBER_OF_VOXELS']['test'])
+        self.vox = voxel_processor_cfg(data_cfg)
+        self.rng = np.random.RandomState(seed)  # a point config's samples
         self.num_class = len(self.cfg['CLASS_NAMES'])
         self.model = build_network(self.cfg['MODEL'], self.num_class,
                                    self.info, seed=seed)
@@ -64,11 +68,19 @@ class Detector:
         self.model.to(device)
 
     def make_batch(self, points_list):
-        """Voxelize clouds on the host; the batch tensors on the device."""
-        arrays = build_batch(points_list, self.info['point_cloud_range'],
-                             self.info['voxel_size'],
-                             self.max_points_per_voxel, self.max_voxels,
-                             max_points=self.max_points)
+        """Voxelize clouds (or sample a point config's) on the host; the
+        batch tensors on the device."""
+        if self.vox is None:
+            arrays = build_point_batch(
+                points_list, self.cfg['DATA_CONFIG']['DATA_PROCESSOR'],
+                self.info['point_cloud_range'], self.max_points,
+                training=False, rng=self.rng)
+        else:
+            arrays = build_batch(
+                points_list, self.info['point_cloud_range'],
+                self.info['voxel_size'], int(self.vox['MAX_POINTS_PER_VOXEL']),
+                int(self.vox['MAX_NUMBER_OF_VOXELS']['test']),
+                max_points=self.max_points)
         return {k: torch.from_numpy(v).to(self.device)
                 for k, v in arrays.items()}
 

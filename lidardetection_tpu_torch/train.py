@@ -1,5 +1,5 @@
-"""Training (PointPillar, SECOND, PV-RCNN and Part-A²): the port's entry
-point, the counterpart of tools/train.py -> engine/trainer.py ->
+"""Training (PointPillar, SECOND, PV-RCNN, Part-A² and PointRCNN): the
+port's entry point, the counterpart of tools/train.py -> engine/trainer.py ->
 parallel/train_step.py.
 
 ``Trainer(cfg_file, device="cuda", seed=0, state_dict=None, total_steps=...)``
@@ -8,15 +8,17 @@ on the card with the config's optimizer; parameters are drawn from ``seed``
 unless a ``state_dict`` is given. ``make_batch(scenes)`` voxelizes
 ``(points, gt_boxes)`` scenes on the host with the config's ``train`` voxel
 cap and, for a sparse 3D backbone, builds the host plan's rulebooks
-(``ops/sparse_plan.py``) with each strided layer's transposed table;
-``step(batch)`` takes one optimizer step of a run of ``total_steps``
+(``ops/sparse_plan.py``) with each strided layer's transposed table; a
+point-based config (PointRCNN) samples, shuffles and pads each cloud
+instead (``ops/voxelize.py::build_point_batch``, the train split's
+processors); ``step(batch)`` takes one optimizer step of a run of ``total_steps``
 and returns the loss terms; ``fit(loader, ckpt_dir)`` runs epochs with
 checkpoints and resume.
 
 The CPU is used only when asked (``device="cpu"``); the default device
 raises when CUDA is absent. Random numbers come from the ``torch.Generator``
 that initializes the parameters, an ``np.random.RandomState`` that
-shuffles each cloud's points, and a generator made each step from
+shuffles (and for a point config samples) each cloud's points, and a generator made each step from
 (``seed``, step) for the random layers (the two-stage detectors' RoI
 sampling and dropout, ``parallel/train_step.py::step_draw``), all from ``seed``.
 
@@ -28,6 +30,8 @@ CLI, training on synthetic scenes made from ``--seed``:
         --cfg_file tools/cfgs/kitti_models/pv_rcnn.yaml --num_steps 4
     python -m lidardetection_tpu_torch.train \
         --cfg_file tools/cfgs/kitti_models/PartA2.yaml --num_steps 4
+    python -m lidardetection_tpu_torch.train \
+        --cfg_file tools/cfgs/kitti_models/pointrcnn.yaml --num_steps 4
 """
 
 import argparse
@@ -44,7 +48,7 @@ from .datasets.synthetic import SyntheticDataset, SyntheticLoader
 from .engine.trainer import train_model
 from .models import build_network
 from .ops.sparse_plan import config_plan
-from .ops.voxelize import build_batch
+from .ops.voxelize import build_batch, build_point_batch
 from .parallel.train_step import TrainState, device_batch, make_train_step
 from .utils.optimization import build_optimizer
 
@@ -61,9 +65,10 @@ class Trainer:
         self.device = device
         data_cfg = self.cfg['DATA_CONFIG']
         self.info = dataset_info(data_cfg)
-        vox = voxel_processor_cfg(data_cfg)
-        self.max_points_per_voxel = int(vox['MAX_POINTS_PER_VOXEL'])
-        self.max_voxels = int(vox['MAX_NUMBER_OF_VOXELS']['train'])
+        self.vox = voxel_processor_cfg(data_cfg)
+        if self.vox is not None:
+            self.max_points_per_voxel = int(self.vox['MAX_POINTS_PER_VOXEL'])
+            self.max_voxels = int(self.vox['MAX_NUMBER_OF_VOXELS']['train'])
         self.shuffle_points = any(
             p['NAME'] == 'shuffle_points' and p['SHUFFLE_ENABLED']['train']
             for p in data_cfg['DATA_PROCESSOR'])
@@ -94,17 +99,25 @@ class Trainer:
     def make_batch(self, scenes):
         """Voxelize ``(points, gt_boxes (G, 8))`` scenes on the host, with
         the raw points padded to MAX_POINTS when the model reads them and
-        the training plan's ``rb_*`` tables for a sparse 3D backbone; the
+        the training plan's ``rb_*`` tables for a sparse 3D backbone (a
+        point config's clouds masked, sampled, shuffled and padded); the
         batch tensors on the device."""
-        clouds = []
-        for points, _ in scenes:
-            if self.shuffle_points:
-                points = points[self.rng.permutation(len(points))]
-            clouds.append(points)
-        arrays = build_batch(clouds, self.info['point_cloud_range'],
-                             self.info['voxel_size'],
-                             self.max_points_per_voxel, self.max_voxels,
-                             max_points=self.max_points, plan=self.plan)
+        if self.vox is None:
+            arrays = build_point_batch(
+                [points for points, _ in scenes],
+                self.cfg['DATA_CONFIG']['DATA_PROCESSOR'],
+                self.info['point_cloud_range'], self.max_points,
+                training=True, rng=self.rng)
+        else:
+            clouds = []
+            for points, _ in scenes:
+                if self.shuffle_points:
+                    points = points[self.rng.permutation(len(points))]
+                clouds.append(points)
+            arrays = build_batch(clouds, self.info['point_cloud_range'],
+                                 self.info['voxel_size'],
+                                 self.max_points_per_voxel, self.max_voxels,
+                                 max_points=self.max_points, plan=self.plan)
         arrays['gt_boxes'] = np.stack([gt for _, gt in scenes])
         return device_batch(arrays, self.device)
 

@@ -20,12 +20,7 @@ _SCRIPT = textwrap.dedent('''
     from lidardetection_tpu_torch.serve import Detector
 
     cfg = cfg_from_yaml_file('tools/cfgs/kitti_models/%(name)s.yaml')
-    vox = cfg.DATA_CONFIG.DATA_PROCESSOR[-1]
-    vox.VOXEL_SIZE = %(voxel_size)s
-    vox.MAX_NUMBER_OF_VOXELS = {'train': 2000, 'test': 2000}
-    cfg.DATA_CONFIG.POINT_CLOUD_RANGE = [0, -40.96, -3, 71.68, 40.96, 1]
-    cfg.MODEL.BACKBONE_2D.LAYER_NUMS = %(layer_nums)s
-    %(extra)s
+    %(setup)s
     det = Detector(cfg, device='cpu')
     points, _, _ = make_scene(np.random.RandomState(0),
                               det.info['point_cloud_range'], num_ground=2000)
@@ -58,20 +53,38 @@ _SCRIPT = textwrap.dedent('''
 _SMALL_ROI_HEAD = ('roi = cfg.MODEL.ROI_HEAD; roi.ROI_AWARE_POOL.POOL_SIZE = 4; '
                    'roi.TARGET_CONFIG.ROI_PER_IMAGE = 16; '
                    'roi.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE = 64')
+# PointRCNN at tests/test_pointrcnn_e2e.py's size (it has no voxelizer)
+_SMALL_POINTRCNN = '\n'.join((
+    "cfg.DATA_CONFIG.MAX_POINTS = 1024",
+    "cfg.DATA_CONFIG.DATA_PROCESSOR[1].NUM_POINTS = {'train': 1024, 'test': 1024}",
+    "m = cfg.MODEL",
+    "m.BACKBONE_3D.SA_CONFIG.NPOINTS = [256, 64, 16, 8]",
+    "m.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE = 64",
+    "m.ROI_HEAD.TARGET_CONFIG.ROI_PER_IMAGE = 16",
+    "m.ROI_HEAD.ROI_POINT_POOL.NUM_SAMPLED_POINTS = 64",
+    "m.ROI_HEAD.SA_CONFIG.NPOINTS = [32, 16, -1]"))
 
 
-@pytest.mark.parametrize('name,voxel_size,layer_nums', [
-    ('pointpillar', [0.64, 0.64, 4], [0, 0, 0]),
-    ('second', [0.32, 0.32, 0.1], [0, 0]),
-    ('PartA2', [0.32, 0.32, 0.1], [0, 0]),
-])
-def test_port_imports_no_jax(name, voxel_size, layer_nums):
+def _voxel_setup(voxel_size, layer_nums, extra=''):
+    return '\n'.join((
+        'vox = cfg.DATA_CONFIG.DATA_PROCESSOR[-1]',
+        f'vox.VOXEL_SIZE = {voxel_size}',
+        "vox.MAX_NUMBER_OF_VOXELS = {'train': 2000, 'test': 2000}",
+        'cfg.DATA_CONFIG.POINT_CLOUD_RANGE = [0, -40.96, -3, 71.68, 40.96, 1]',
+        f'cfg.MODEL.BACKBONE_2D.LAYER_NUMS = {layer_nums}', extra))
+
+
+@pytest.mark.parametrize('name,setup', [
+    ('pointpillar', _voxel_setup([0.64, 0.64, 4], [0, 0, 0])),
+    ('second', _voxel_setup([0.32, 0.32, 0.1], [0, 0])),
+    ('PartA2', _voxel_setup([0.32, 0.32, 0.1], [0, 0], _SMALL_ROI_HEAD)),
+    ('pointrcnn', _SMALL_POINTRCNN),
+], ids=['pointpillar', 'second', 'PartA2', 'pointrcnn'])
+def test_port_imports_no_jax(name, setup):
     env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
     env['PYTHONPATH'] = str(ROOT)
     env['OMP_NUM_THREADS'] = '2'  # as torch_threads.py: six files at once
-    script = _SCRIPT % {'name': name, 'voxel_size': voxel_size,
-                        'layer_nums': layer_nums,
-                        'extra': _SMALL_ROI_HEAD if name == 'PartA2' else ''}
+    script = _SCRIPT % {'name': name, 'setup': setup}
     proc = subprocess.run([sys.executable, '-c', script], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -79,7 +92,7 @@ def test_port_imports_no_jax(name, voxel_size, layer_nums):
 
 
 @pytest.mark.parametrize('name', ['pointpillar', 'second', 'pv_rcnn',
-                                  'PartA2'])
+                                  'PartA2', 'pointrcnn'])
 def test_default_device_is_cuda(name):
     from lidardetection_tpu_torch.serve import Detector
 
@@ -135,22 +148,21 @@ def test_unported_paths_raise_with_the_roadmap_item(name):
         with pytest.raises(NotImplementedError, match='Variants'):
             roi_head_utils.assign_roi_targets({}, {}, tracking)
         return
-    if name == 'PARTA2':  # ported; its anchor-free variant and
-        # PointRCNN's point box head are not
+    if name == 'PARTA2':  # ported, with the point box branch that its
+        # anchor-free variant (PartA2_free.yaml, NAME PointRCNN) needs; that
+        # variant's RoI head without part features is not
         from lidardetection_tpu_torch.config import dataset_info
         cfg = cfg_from_yaml_file('tools/cfgs/kitti_models/PartA2.yaml')
         cfg.MODEL.ROI_HEAD.ROI_AWARE_POOL.POOL_SIZE = 4  # a small first FC
         cfg.MODEL.ROI_HEAD.DISABLE_PART = True
+        cfg.MODEL.POINT_HEAD.TARGET_CONFIG.BOX_CODER = 'PointResidualCoder'
+        cfg.MODEL.POINT_HEAD.REG_FC = []
+        cfg.MODEL.NAME = 'PointRCNN'
         model = build_network(cfg.MODEL, 3, dataset_info(cfg.DATA_CONFIG))
+        assert model.point_head.box_layers is not None
         with pytest.raises(NotImplementedError, match='Variants'):
             model.roi_head({'batch_box_preds': torch.zeros(1, 4, 7),
                             'batch_cls_preds': torch.zeros(1, 4, 3)})
-        cfg.MODEL.POINT_HEAD.TARGET_CONFIG.BOX_CODER = 'PointResidualCoder'
-        with pytest.raises(NotImplementedError, match='PointRCNN'):
-            build_network(cfg.MODEL, 3, dataset_info(cfg.DATA_CONFIG))
-        cfg.MODEL.NAME = 'PointRCNN'
-        with pytest.raises(NotImplementedError, match='PointRCNN'):
-            build_network(cfg.MODEL, 3, dataset_info(cfg.DATA_CONFIG))
         return
     cfg = cfg_from_yaml_file('tools/cfgs/kitti_models/pointpillar.yaml')
     head_cfg = cfg.MODEL.DENSE_HEAD

@@ -591,6 +591,45 @@ def test_grid_ball_query_on_the_card_launches_k5(device, monkeypatch):
     assert bool(got[0][1][~valid].all()) and not bool(got[1][1][valid].all())
 
 
+def test_ball_select_at_pointrcnn_shapes(device, monkeypatch):
+    """PointRCNN's two grid ball queries on a sampled synthetic cloud at
+    full width: 16384 sources and 4096 sector-FPS centres, radii (0.1,
+    0.5); then those 4096 and 1024 of them, radii (0.5, 1.0); nsample
+    (16, 32), cell cap 64 over pointrcnn.yaml's range. K5 once each,
+    equal to the plain selection."""
+    from lidardetection_tpu_torch.datasets.synthetic import make_scene
+    from lidardetection_tpu_torch.datasets.processor.data_processor import (
+        process_points,
+    )
+    from lidardetection_tpu_torch.config import cfg_from_yaml_file
+
+    cfg = cfg_from_yaml_file('tools/cfgs/kitti_models/pointrcnn.yaml')
+    pc_range = np.asarray(cfg.DATA_CONFIG.POINT_CLOUD_RANGE, np.float32)
+    points = process_points(make_scene(np.random.RandomState(4), pc_range)[0],
+                            cfg.DATA_CONFIG.DATA_PROCESSOR, pc_range, False,
+                            np.random.RandomState(4))
+    assert points.shape == (16384, 4)
+    knobs = pointnet2.PointOpKnobs.from_config(cfg.MODEL, pc_range)
+    xyz = torch.from_numpy(points[None, :, :3].copy()).to(device)
+    num = torch.tensor([16384], dtype=torch.int32, device=device)
+    for npoint, radii in ((4096, (0.1, 0.5)), (1024, (0.5, 1.0))):
+        idx = pointnet2.fps(xyz, num, npoint, knobs=knobs)
+        centers = pointnet2.group_points(xyz, idx[..., None]).squeeze(2)
+        valid = torch.ones((1, npoint), dtype=torch.bool, device=device)
+        before = ball_select.launches
+        got = pointnet2.ball_query_multi(radii, (16, 32), xyz, num, centers,
+                                         valid, knobs=knobs)
+        assert ball_select.launches == before + 1
+        with monkeypatch.context() as mp:
+            mp.setattr(pointnet2, 'ball_select', ball_select_plain)
+            want = pointnet2.ball_query_multi(radii, (16, 32), xyz, num,
+                                              centers, valid, knobs=knobs)
+        for (gi, ge), (wi, we) in zip(got, want):
+            assert torch.equal(gi, wi) and torch.equal(ge, we)
+        assert not bool(got[0][1].any())  # every centre is a source
+        xyz, num = centers.contiguous(), torch.full_like(num, npoint)
+
+
 def _tf32_flags():
     return (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32,
@@ -605,7 +644,8 @@ def _set_tf32_flags(cudnn, matmul, precision):
 
 @pytest.mark.parametrize('cfg_file', ['tools/cfgs/kitti_models/pointpillar.yaml',
                                       'tools/cfgs/kitti_models/pv_rcnn.yaml',
-                                      'tools/cfgs/kitti_models/PartA2.yaml'])
+                                      'tools/cfgs/kitti_models/PartA2.yaml',
+                                      'tools/cfgs/kitti_models/pointrcnn.yaml'])
 def test_f32_forward_ignores_the_tf32_flags(device, cfg_file):
     """An f32 forward with TF32 allowed for cuDNN and matmul, and the matmul
     precision 'high', gives the bits of the same forward with them off
@@ -662,6 +702,42 @@ def test_inverse_rulebook_on_the_card_equals_the_cpu(device, geometry):
             down, up.coords, (3, 3, 3), stride, padding).cpu())
     cpu, card = out
     assert torch.equal(cpu, card) and (cpu < 4000).any()
+
+
+def test_pointrcnn_point_ops_on_the_card_equal_the_cpu(device):
+    """three_nn and its interpolation, and the RoI point pool, on the card
+    against the CPU: the pooled rows equal; the neighbours equal but where
+    the cancelling distance formula (rounded by another matmul on each
+    device) reorders near-equal ones, at most 1 in 1000, and the
+    distances within 1e-3 m."""
+    from lidardetection_tpu_torch.ops.roi_pool import roipoint_pool3d
+
+    rng = np.random.RandomState(6)
+    src = rng.uniform((0, -40, -3), (70, 40, 1), (2, 4096, 3)).astype(np.float32)
+    query = rng.uniform((0, -40, -3), (70, 40, 1), (2, 16384, 3)).astype(np.float32)
+    num = np.array([4096, 3000], np.int32)
+    feats = rng.randn(2, 4096, 8).astype(np.float32)
+    args = [torch.from_numpy(x) for x in (query, src, num)]
+    d, i = pointnet2.three_nn(*args)
+    dc, ic = pointnet2.three_nn(*(a.to(device) for a in args))
+    assert float((ic.cpu() != i).float().mean()) < 1e-3
+    torch.testing.assert_close(dc.cpu(), d, rtol=0, atol=1e-3)
+    w = pointnet2.three_nn_weights(d)
+    f = torch.from_numpy(feats)
+    torch.testing.assert_close(
+        pointnet2.three_interpolate(f.to(device), i.to(device), w.to(device)).cpu(),
+        pointnet2.three_interpolate(f, i, w), rtol=0, atol=1e-5)
+    rois = np.zeros((2, 100, 7), np.float32)
+    rois[..., 0:2] = src[:, :100, 0:2]
+    rois[..., 3:6] = rng.uniform(1, 5, (2, 100, 3))
+    rois[..., 6] = rng.uniform(-3, 3, (2, 100))
+    pool = [torch.from_numpy(x) for x in (query, np.concatenate(
+        [query, rng.randn(2, 16384, 4).astype(np.float32)], -1),
+        np.array([16384, 12000], np.int32), rois, np.ones((2, 100), bool))]
+    want = roipoint_pool3d(*pool, num_sampled_points=512)
+    got = roipoint_pool3d(*(a.to(device) for a in pool), num_sampled_points=512)
+    for g, w_ in zip(got, want):
+        assert torch.equal(g.cpu(), w_)
 
 
 @pytest.mark.parametrize('method', ['avg', 'max'])
