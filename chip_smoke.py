@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: PointPillar,
 SECOND, Part-A² and PointRCNN, serving, training and evaluation; PV-RCNN
-serving and training.
+serving and training; the variants (the NuScenes CBGS multi-head
+detectors, multiframe PV-RCNN, PartA2-free, second_multihead).
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -155,9 +156,35 @@ RoI set abstractions), run after Part-A²'s phase of each kind:
  - evaluation (4 scenes at B = 2, 2 K5 a batch), the KITTI protocol native
    against numpy on its annos; one request and one step under the
    profiler.
+The variants, run after PointRCNN's phase of each kind:
+ - tools/cfgs/nuscenes_models/cbgs_second_multihead.yaml serving, bf16,
+   B = 1, the 60000-voxel cap, class-logit biases 0, on clouds as dense
+   as a 10-sweep NuScenes scan (``datasets/synthetic.py::make_sweeps``,
+   ~270k points in range, printed): 3 requests with 19 K3
+   (VoxelResBackBone8x) and 1 K2 checked per request, the rows each
+   class's NMS walk read, peak memory; K3 against its plain version at
+   the 19 layers of a real request in bf16 and f32 and each layer's time
+   (the 128-channel stage 4 among them); the forward split with the head
+   groups apart; the same weights and cloud in f32 on the card and on the
+   CPU, every class's kept boxes equal up to a score tie;
+ - its training, B = 4 dense scans on the host plan: 2 warm-up and 3
+   timed steps with 37 K3 (19 forward, 14 submanifold and 4 strided df),
+   19 K4 and 1 K2 checked per step, peak memory, the step split; K4 at
+   each layer (bf16 and f32, B = 1 and 4) and K3 at each of the 37
+   launches against their plain versions with times, the strided df on
+   K3 against the scatter-add;
+ - cbgs_pp_multihead.yaml (the PFN stack, no K1) served (1 K2 a
+   request) and one timed training step (1 K2); pv_rcnn_multiframe.yaml
+   served (12 K3, 1 K2, 5 K5) with an f32 request kernels vs plain, and
+   trained (23 K3, 12 K4, 1 K2, 5 K5 a step), the tracking targets live
+   in the RoI loss; PartA2_free.yaml served (27 K3) with an f32 request
+   kernels vs plain, and trained (53 K3, 27 K4 a step);
+ - second_multihead.yaml through ``eval_one_epoch`` (12 K3, 1 K2 a batch,
+   multi-class NMS), the KITTI protocol native vs numpy on its annos.
 The line before the last is the kernels' JSON (K5's entry with PointRCNN's
-two levels under ``pointrcnn``), preceded by the card's name and power
-limit; the last line is the device JSON.
+two levels under ``pointrcnn``; K3's and K4's at VoxelResBackBone8x's
+shapes under ``cbgs``), preceded by the card's name and power limit; the
+last line is the device JSON.
 """
 
 import contextlib
@@ -183,6 +210,14 @@ TRAIN_BATCH = 4              # BATCH_SIZE_PER_GPU of pointpillar and second
 TRAIN_WARMUP, TRAIN_STEPS = 2, 3
 EVAL_SCENES, EVAL_BATCH = 4, 2  # the eval phase, both detectors
 PERFECT_SCENES = 48          # the protocol check's perfect predictions
+CFG_CBGS_SECOND = 'tools/cfgs/nuscenes_models/cbgs_second_multihead.yaml'
+CFG_CBGS_PP = 'tools/cfgs/nuscenes_models/cbgs_pp_multihead.yaml'
+CFG_SECOND_MH = 'tools/cfgs/kitti_models/second_multihead.yaml'
+CFG_MULTIFRAME = 'tools/cfgs/livox_models/pv_rcnn_multiframe.yaml'
+CFG_PARTA2_FREE = 'tools/cfgs/kitti_models/PartA2_free.yaml'
+N_REQUESTS_VARIANTS = 3
+NUSCENES_SWEEPS = 10         # a NuScenes scan: the key frame and 9 sweeps
+NUSCENES_GROUND = 26000      # ring returns a sweep: ~250k points in range
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12     # H100 SXM, dense bf16 on the tensor cores
@@ -278,12 +313,44 @@ def full_matrix_nms(torch, boxes, scores, valid, thresh, pre_maxsize,
 
 
 def make_clouds(det, n, seed):
-    """n synthetic scans (18k ground-ring points + objects) from a seed."""
-    from lidardetection_tpu_torch.datasets.synthetic import make_scene
+    """n synthetic scans (18k ground-ring points + objects) from a seed, at
+    the config's point width (``serve.Detector.scene``)."""
+    rng = np.random.RandomState(seed)
+    return [det.scene(rng) for _ in range(n)]
+
+
+def dense_clouds(det, n, seed):
+    """n clouds as dense as a 10-sweep NuScenes scan: NUSCENES_SWEEPS scans
+    of NUSCENES_GROUND ring returns each, moved back along x and stamped
+    with their time lag (``datasets/synthetic.py::make_sweeps``)."""
+    from lidardetection_tpu_torch.datasets.synthetic import make_sweeps
 
     rng = np.random.RandomState(seed)
     pc_range = np.asarray(det.info['point_cloud_range'], np.float32)
-    return [make_scene(rng, pc_range)[0] for _ in range(n)]
+    return [make_sweeps(rng, pc_range, NUSCENES_SWEEPS, NUSCENES_GROUND,
+                        class_names=tuple(det.cfg['CLASS_NAMES']))[0]
+            for _ in range(n)]
+
+
+def in_range(points, pc_range):
+    lo, hi = np.asarray(pc_range[:3]), np.asarray(pc_range[3:6])
+    return int(((points[:, :3] >= lo) & (points[:, :3] <= hi)).all(1).sum())
+
+
+def zero_class_bias(torch, model):
+    """The dense head's class-logit biases at 0, so that live candidates
+    reach NMS (the focal prior puts every random-weight score under
+    SCORE_THRESH): the single head's, or every head group's class
+    convolution of the multi-head."""
+    head = model.dense_head
+    if head is None:
+        return
+    with torch.no_grad():
+        if hasattr(head, 'rpn_heads'):
+            for group in head.rpn_heads:
+                group.convs[0].bias.zero_()
+        else:
+            head.conv_cls_bias.zero_()
 
 
 def batch_rows(batch):
@@ -702,8 +769,9 @@ def stage_counts(out):
     """Live rows of each stage's table of a SECOND forward, per sample."""
     counts = {name: st.num_voxels.tolist()
               for name, st in out['multi_scale_3d_features'].items()}
-    enc = out['encoded_spconv_tensor']
-    counts['out'] = (enc != 0).any(-1).flatten(1).sum(1).tolist()
+    if 'encoded_spconv_tensor' in out:  # not in a UNet without conv_out
+        enc = out['encoded_spconv_tensor']
+        counts['out'] = (enc != 0).any(-1).flatten(1).sum(1).tolist()
     return counts
 
 
@@ -714,7 +782,7 @@ def serve_phase(torch, det, clouds, per_request, earlier=None):
     are printed beside `earlier` (the same shapes before the NMS walk and
     the native voxelizer). Each request's NMS
     reports the rows its walk read. Returns the launches of the run."""
-    from lidardetection_tpu_torch.models.detectors import post_processing
+    from lidardetection_tpu_torch.models.model_utils import nms_utils
 
     total = {k.__name__: 0 for k in per_request}
     latency, forward, stages, rows_read = [], [], [], []
@@ -732,11 +800,13 @@ def serve_phase(torch, det, clouds, per_request, earlier=None):
         end.synchronize()
         t2 = time.perf_counter()
         nms = []
-        with recorded(post_processing, 'nms_bev_batched', nms):
+        with recorded(nms_utils, 'nms_bev_batched', nms):
             preds = det.postprocess(out)
-        rows_read.append(int(nms[-1][2][3][0]))
+        # a multi-class NMS reads rows in each class's walk
+        rows_read.append(preds['rows_read'][0].tolist() if 'rows_read' in preds
+                         else int(nms[-1][2][3][0]))
         n = int(preds['num_preds'][0])
-        boxes = preds['pred_boxes'][0, :n].cpu().numpy()
+        boxes = preds['pred_boxes'][0][preds['pred_mask'][0]].cpu().numpy()
         t3 = time.perf_counter()
         latency.append((t3 - t0) * 1e3)
         forward.append(start.elapsed_time(end))
@@ -751,8 +821,9 @@ def serve_phase(torch, det, clouds, per_request, earlier=None):
               f'(host clock: make_batch {stages[-1][0]:.2f}, forward '
               f'{stages[-1][1]:.2f}, postprocess {stages[-1][2]:.2f}), '
               f'forward device {forward[-1]:.2f} ms', flush=True)
-        check(boxes.shape == (n, 7) and np.isfinite(boxes).all(),
-              f'request {i}: finite boxes')
+        # 7 columns, 9 with NuScenes' velocity
+        check(boxes.shape[0] == n and boxes.shape[1] in (7, 9)
+              and np.isfinite(boxes).all(), f'request {i}: finite boxes')
         check(live > 0 and n > 0, f'request {i}: live candidates and detections')
         for k, each in per_request.items():
             check(k.launches == each, f'request {i}: {k.__name__} launched '
@@ -935,22 +1006,140 @@ def compare_kept(pg, pc, dmax, i):
           f'{np.abs(bg[:ng] - bc[:ng]).max() if ng else 0:.3g}', flush=True)
 
 
-def train_batches(trainer, n, seed):
-    """n training batches of the yaml's BATCH_SIZE_PER_GPU synthetic scenes
-    each, on the card, and the median host time of `make_batch`."""
-    from lidardetection_tpu_torch.datasets.synthetic import SyntheticDataset
+def compare_multiclass_phase(torch, det, cfg_file, points):
+    """A multi-head detector in f32 on the card (kernels) against f32 on
+    the CPU (plain versions), one cloud: each head group's class logits
+    within 1e-3 of the largest (at most 1e-3 absolute), then every class's
+    kept detections by `compare_kept` (each class's block of
+    NMS_POST_MAXSIZE slots holds its kept rows first)."""
+    from lidardetection_tpu_torch.config import cfg_from_yaml_file
+    from lidardetection_tpu_torch.serve import Detector
 
+    cfg = cfg_from_yaml_file(cfg_file)
+    cfg.MODEL.COMPUTE_DTYPE = 'float32'
+    state = {k: v.cpu() for k, v in det.model.state_dict().items()}
+    on_card = Detector(cfg, device='cuda', state_dict=state)
+    on_cpu = Detector(cfg, device='cpu', state_dict=state)
+    t0 = time.perf_counter()
+    out_g = on_card.forward(on_card.make_batch([points]))
+    out_c = on_cpu.forward(on_cpu.make_batch([points]))
+    dmax = top = 0.0
+    for got, want in zip(out_g['batch_cls_preds'], out_c['batch_cls_preds']):
+        dmax = max(dmax, float((got.cpu() - want).abs().max()))
+        top = max(top, float(want.abs().max()))
+    print(f'f32 multi-head: max|card - cpu| of the class logits = {dmax:.3g}, '
+          f'max|cpu| = {top:.3g} (tolerance 1e-3 * max|cpu|, at most 1e-3)',
+          flush=True)
+    check(top > 0 and dmax <= 1e-3 * min(top, 1.0), 'class logits card vs cpu')
+    pg, pc = on_card.postprocess(out_g), on_cpu.postprocess(out_c)
+    post = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    classes = pg['pred_mask'].shape[1] // post
+    for k in range(classes):
+        part = slice(k * post, (k + 1) * post)
+        block = [{key: pr[key][:, part] for key in
+                  ('pred_scores', 'pred_boxes', 'pred_labels')}
+                 for pr in (pg, pc)]
+        for b, pr in zip(block, (pg, pc)):
+            b['num_preds'] = pr['pred_mask'][:, part].sum(1)
+            check(bool((pr['pred_mask'][0, part]
+                        == (torch.arange(post, device=pr['pred_mask'].device)
+                            < b['num_preds'][0])).all()),
+                  f'class {k}: the kept rows come first in its block')
+        compare_kept(*block, dmax, f'0, class {k + 1}')
+    print(f'f32 multi-head card vs cpu: {classes} classes compared, '
+          f'{int(pg["num_preds"][0])} kept on the card, '
+          f'{int(pc["num_preds"][0])} on the cpu '
+          f'({time.perf_counter() - t0:.1f} s with the CPU forward)', flush=True)
+
+
+def tracking_phase(torch, trainer, batch):
+    """The multiframe RoI head's tracking targets in the loss, at full
+    width on the card: one training forward of the model, then its RoI
+    head again on proposals that are the batch's gt boxes moved by up to
+    0.1 m (the random dense head proposes no box that overlaps a gt box
+    by REG_FG_THRESH): the sampled RoIs' gt carries 8 tracking columns
+    after its class, the regression-valid RoIs' are not all 0, the loss
+    is finite and the box head's tracking outputs get a gradient."""
+    from lidardetection_tpu_torch.parallel.train_step import step_draw
+
+    model = trainer.model.train()
+    for p in model.parameters():
+        p.grad = None
+    draw = step_draw(trainer.seed, trainer.state.step, 'cuda')
+    out = model(batch, draw)
+    check(bool(out['roi_head_fwd']['reg_tracking_info'])
+          and out['roi_head_fwd']['gt_of_rois'].shape[-1] == 16,
+          'multiframe: the RoI targets carry the tracking columns')
+    gt = batch['gt_boxes']
+    n = gt.shape[1]
+    boxes = out['batch_box_preds'].detach().clone()
+    scores = out['batch_cls_preds'].detach().clone()
+    jitter = (torch.rand(gt.shape[:2] + (3,), device=gt.device) - 0.5) * 0.2
+    boxes[:, :n, :7] = gt[..., :7] + torch.cat(
+        [jitter, torch.zeros_like(gt[..., 3:7])], -1)
+    live = gt[..., -1] > 0
+    scores[:, :n] = torch.where(live[..., None], 10.0, -10.0)
+    roi_out = model.roi_head({**out, 'batch_box_preds': boxes,
+                              'batch_cls_preds': scores}, draw)
+    fwd = roi_out['roi_head_fwd']
+    valid = fwd['reg_valid_mask'] > 0
+    track = fwd['gt_of_rois'][..., 8:][valid]
+    loss, tb = model.roi_head.loss(fwd)
+    loss.backward()
+    kernel = model.roi_head.fc_heads[1].dense[-1].kernel
+    grad = float(kernel.grad[:, 7:].abs().max())
+    print(f'multiframe tracking: {int(valid.sum())} regression-valid RoIs of '
+          f'{valid.numel()}, their tracking targets mean |.| '
+          f'{float(track.abs().mean()) if len(track) else 0.0:.4f}, rcnn_loss_reg '
+          f'{float(tb["rcnn_loss_reg"]):.4f}, max |grad| of the tracking '
+          f'outputs\' weights {grad:.3g}', flush=True)
+    check(int(valid.sum()) > 0 and float(track.abs().sum()) > 0
+          and bool(torch.isfinite(loss)) and grad > 0,
+          'multiframe: the tracking targets are live in the RoI loss')
+    for p in model.parameters():
+        p.grad = None
+
+
+def train_batches(trainer, n, seed, dense=False):
+    """n training batches of the yaml's BATCH_SIZE_PER_GPU synthetic scenes
+    each (the config's point width, velocities and frame poses; with
+    `dense` as dense as a 10-sweep NuScenes scan), on the card, and the
+    median host time of `make_batch`."""
     size = train_batch_size(trainer)
-    dataset = SyntheticDataset(
-        trainer.class_names, trainer.info['point_cloud_range'],
-        num_scenes=n * size, seed=seed, max_gt_boxes=trainer.max_gt_boxes)
+    if dense:
+        scenes_all = dense_train_scenes(trainer, n * size, seed)
+    else:
+        dataset = trainer.dataset(n * size, seed=seed)
+        scenes_all = [dataset[i] for i in range(n * size)]
     batches, ms = [], []
     for i in range(n):
-        scenes = [dataset[i * size + j] for j in range(size)]
+        scenes = scenes_all[i * size:(i + 1) * size]
         t0 = time.perf_counter()
         batches.append(trainer.make_batch(scenes))
         ms.append((time.perf_counter() - t0) * 1e3)
     return batches, float(np.median(ms))
+
+
+def dense_train_scenes(trainer, n, seed):
+    """n training scenes of `make_sweeps` clouds, their gt boxes padded as
+    the config's synthetic set pads them (NuScenes: with velocities)."""
+    from lidardetection_tpu_torch.datasets.synthetic import (
+        make_sweeps, pad_gt_boxes,
+    )
+
+    rng = np.random.RandomState(seed)
+    pc_range = np.asarray(trainer.info['point_cloud_range'], np.float32)
+    scenes = []
+    for _ in range(n):
+        points, boxes, names = make_sweeps(
+            rng, pc_range, NUSCENES_SWEEPS, NUSCENES_GROUND,
+            class_names=trainer.class_names)
+        if trainer.cfg['DATA_CONFIG'].get('PRED_VELOCITY', False):
+            vel = (rng.randn(len(boxes), 2) * 2.0).astype(np.float32)
+            boxes = np.concatenate([boxes.reshape(-1, 7), vel], axis=1)
+        scenes.append((points, pad_gt_boxes(boxes, names, trainer.class_names,
+                                            pc_range, trainer.max_gt_boxes)))
+    return scenes
 
 
 def train_batch_size(trainer):
@@ -962,8 +1151,9 @@ def finite_gradients(torch, model):
                for p in model.parameters())
 
 
-def train_phase(torch, trainer, batches, per_step, earlier=None):
-    """The training main path: TRAIN_WARMUP + TRAIN_STEPS optimizer steps
+def train_phase(torch, trainer, batches, per_step, earlier=None,
+                warmup=TRAIN_WARMUP):
+    """The training main path: `warmup` + TRAIN_STEPS optimizer steps
     through ``Trainer.step``; every launch count set to 0 just before each
     step and read just after. `per_step` maps each kernel's wrapper to the
     launches one step must make; the step p50 is printed beside `earlier`
@@ -991,7 +1181,7 @@ def train_phase(torch, trainer, batches, per_step, earlier=None):
         host = (time.perf_counter() - t0) * 1e3
         counts = {k.__name__: k.launches for k in per_step}
         terms = {k: float(v) for k, v in tb.items()}
-        timed = i >= TRAIN_WARMUP
+        timed = i >= warmup
         print(f'{name} step {i}{"" if timed else " (warm-up)"}: '
               + ' '.join(f'{k} {v:.4f}' for k, v in terms.items())
               + f', lr {trainer.lr_fn(i):.3e}, {batch_rows(batch)}, gt '
@@ -1977,10 +2167,8 @@ def eval_phase(torch, cfg_file, per_batch):
     classes = list(cfg.CLASS_NAMES)
     post = cfg.MODEL.POST_PROCESSING
     model = build_network(cfg.MODEL, len(classes), dataset_info(cfg.DATA_CONFIG),
-                          seed=SEED).to('cuda')
-    if model.dense_head is not None:
-        with torch.no_grad():
-            model.dense_head.conv_cls_bias.zero_()
+                          seed=SEED, class_names=classes).to('cuda')
+    zero_class_bias(torch, model)
     _, loader = build_test_loader(cfg, EVAL_BATCH, EVAL_SCENES, seed=SEED + 500)
     make_eval_step(model, post, len(classes))(
         device_batch(next(iter(loader)), 'cuda'))  # warm-up
@@ -2113,19 +2301,23 @@ def precise_bn_phase(torch):
           f'(tolerance 1e-3)', flush=True)
 
 
-def unet_kernel_phase(torch, det):
-    """K3 against its plain version at the 28 convolutions of a Part-A²
-    request (UNetV2: the encoder's 12, the decoder's 16, three of them
-    inverse), on the rulebooks and activations of a real voxelized scan,
-    in bf16 and f32 (within 1e-4 of the largest output), then each
-    layer's time at the request's shape and dtype."""
+def request_kernel_phase(torch, det, points, label, groups, inverse_from=None):
+    """K3 against its plain version at every sparse convolution of one
+    request of `det` on `points` (the rulebooks and activations of a real
+    voxelized scan), in bf16 and f32 (within 1e-4 of the largest output),
+    then each layer's time at the request's shape and dtype. `groups`
+    names consecutive runs of layers, (name, count), for the print; with
+    `inverse_from` the strided layers from that one on are inverse
+    convolutions (UNetV2's decoder)."""
     from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
         rulebook_conv, rulebook_conv_plain,
     )
 
-    batch = det.make_batch(make_clouds(det, 1, SEED + 210))
+    batch = det.make_batch([points])
     records, _ = record_sparse_layers(det.model, lambda: det.forward(batch))
-    check(len(records) == 28, f'28 sparse layers in a forward ({len(records)})')
+    n_layers = sum(n for _, n in groups)
+    check(len(records) == n_layers,
+          f'{n_layers} sparse layers in a {label} forward ({len(records)})')
     err = 0.0
     for n, (layer, f, valid, rb) in enumerate(records, 1):
         for dtype in (torch.bfloat16, torch.float32):
@@ -2136,28 +2328,39 @@ def unet_kernel_phase(torch, det):
             torch.cuda.synchronize()
             e, top = float((got - want).abs().max()), float(want.abs().max())
             check(top > 0 and e <= 1e-4 * top and bool(torch.isfinite(got).all()),
-                  f'UNet layer {n} {dtype}: max error {e} against max|want| {top}')
+                  f'{label} layer {n} {dtype}: max error {e} against max|want| {top}')
             err = max(err, e)
-    # the decoder's strided layers are its three inverse convolutions
-    names = [f'{n} (inverse)' if n > 12 and not layer.subm else f'{n}'
+    names = [f'{n} (inverse)' if inverse_from and n >= inverse_from
+             and not layer.subm else f'{n}'
              for n, (layer, *_) in enumerate(records, 1)]
-    rows = [conv_timing(torch, name, 'Part-A2 B=1',
+    rows = [conv_timing(torch, name, f'{label} B=1',
                         f.to(layer.dtype or torch.float32), rb,
                         layer.kernel.detach().to(layer.dtype or torch.float32),
                         valid)
             for name, (layer, f, valid, rb) in zip(names, records)]
     total = {key: sum(r[key] for r in rows)
              for key in ('ms', 'plain_ms', 'bound_ms')}
-    print(f'rulebook_conv, the 28 launches of a Part-A2 request (bf16 and f32 '
-          f'within 1e-4 * max|want| at every layer, largest error {err:.3g}): '
-          f'device {total["ms"]:.4f} ms (encoder 12: '
-          f'{sum(r["ms"] for r in rows[:12]):.4f}, decoder 16: '
-          f'{sum(r["ms"] for r in rows[12:]):.4f}), plain '
-          f'{total["plain_ms"]:.4f} ms, bound {total["bound_ms"]:.4f} ms',
+    parts, start = [], 0
+    for name, count in groups:
+        parts.append(f'{name} {count}: '
+                     f'{sum(r["ms"] for r in rows[start:start + count]):.4f}')
+        start += count
+    print(f'rulebook_conv, the {n_layers} launches of a {label} request (bf16 '
+          f'and f32 within 1e-4 * max|want| at every layer, largest error '
+          f'{err:.3g}): device {total["ms"]:.4f} ms ({", ".join(parts)}), '
+          f'plain {total["plain_ms"]:.4f} ms, bound {total["bound_ms"]:.4f} ms',
           flush=True)
     return {'per_request_ms': total['ms'], 'per_request_plain_ms':
             total['plain_ms'], 'per_request_bound_ms': total['bound_ms'],
             'max_abs_err': err, 'layers': rows}
+
+
+def unet_kernel_phase(torch, det):
+    """K3 at the 28 convolutions of a Part-A² request (UNetV2: the
+    encoder's 12, the decoder's 16, three of them inverse)."""
+    return request_kernel_phase(
+        torch, det, make_clouds(det, 1, SEED + 210)[0], 'Part-A2',
+        (('encoder', 12), ('decoder', 16)), inverse_from=13)
 
 
 def parta2_split(torch, det, points, repeats=3):
@@ -2316,31 +2519,28 @@ def parta2_step_split(torch, trainer, batch):
     return split
 
 
-def unet_gradient_phase(torch, trainer, batch):
-    """At the shapes of a full-width Part-A² training step (B = 2, the
-    training plan): K4 against its plain version at each of the 28 layers'
-    (f, rulebook, g) in bf16 and f32, B = 1 and B = 2, and its time; K3
-    against its plain version at each of the step's 55 launches (28
-    forward, 27 df) and its time; each inverse convolution's df (K3 over
-    the paired strided layer's forward rulebook ``rb_down<n>``, W[k]^T)
-    and each strided layer's df (K3 over ``rb_<name>_bwd``) against the
-    plain scatter-add."""
+def step_kernel_phase(torch, trainer, batch, label, n_layers, n_df,
+                      df_pairs):
+    """At the shapes of a full-width training step on the training plan:
+    K4 against its plain version at each of the `n_layers` layers' (f,
+    rulebook, g) in bf16 and f32, B = 1 and the step's B, and its time; K3
+    against its plain version at each of the step's n_layers + `n_df`
+    launches and its time; each df of `df_pairs`, (what, the rulebook K3
+    walks for it, the forward rulebook's key), against the plain
+    scatter-add over the forward rulebook."""
     from lidardetection_tpu_torch.ops import sparse
     from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
         rulebook_conv, rulebook_conv_dw, rulebook_conv_dw_plain,
     )
 
     layers, calls, convs = record_weight_gradients(trainer, batch)
-    check(len(layers) == len(calls) == 28 and len(convs) == 28 + 27,
-          f'28 sparse layers, 28 weight gradients and 55 K3 calls '
-          f'({len(layers)}, {len(calls)}, {len(convs)})')
-    dfs = convs[28:]
-    # the inverse convs' df over rb_down<n>, the strided layers' over rb_*_bwd
-    pairs = [(f'inverse {n}', batch[f'rb_down{n}'], f'rb_inv{n}')
-             for n in (4, 3, 2)] + \
-        [(f'strided {name}', batch[f'rb_{name}_bwd'], f'rb_{name}')
-         for name in ('down2', 'down3', 'down4', 'out')]
-    for what, rb_t, fwd_name in pairs:
+    check(len(layers) == len(calls) == n_layers
+          and len(convs) == n_layers + n_df,
+          f'{n_layers} sparse layers, {n_layers} weight gradients and '
+          f'{n_layers + n_df} K3 calls ({len(layers)}, {len(calls)}, '
+          f'{len(convs)})')
+    dfs = convs[n_layers:]
+    for what, rb_t, fwd_name in df_pairs:
         (g, _, wb, in_valid), = [c for c in dfs
                                  if c[1].data_ptr() == rb_t.data_ptr()]
         got = rulebook_conv(g, rb_t, wb, in_valid)
@@ -2359,7 +2559,7 @@ def unet_gradient_phase(torch, trainer, batch):
     b_step = batch['voxels'].shape[0]
     for n, ((layer, _, valid, _), (f, rb, g)) in enumerate(zip(layers, calls), 1):
         check((rb.shape[2], f.shape[2], g.shape[2]) == tuple(layer.kernel.shape),
-              f'Part-A2 layer {n}: the recorded gradient belongs to it')
+              f'{label} layer {n}: the recorded gradient belongs to it')
         for dtype in (torch.bfloat16, torch.float32):
             fd, gd = f.to(dtype), g.to(dtype)
             for b in (1, b_step):
@@ -2370,7 +2570,7 @@ def unet_gradient_phase(torch, trainer, batch):
                 torch.cuda.synchronize()
                 e, top = float((got - want).abs().max()), float(want.abs().max())
                 check(top > 0 and e <= 1e-4 * top and bool(torch.isfinite(got).all()),
-                      f'rulebook_conv_dw Part-A2 layer {n} B={b} {dtype}: max '
+                      f'rulebook_conv_dw {label} layer {n} B={b} {dtype}: max '
                       f'error {e} against max|want| {top}')
                 err = max(err, e)
         k, c_in, c_out = layer.kernel.shape
@@ -2385,28 +2585,46 @@ def unet_gradient_phase(torch, trainer, batch):
         shapes.append(row)
     k4 = {key: sum(r[key] for r in shapes) for key in ('ms', 'plain_ms',
                                                        'bound_ms')}
-    print(f'rulebook_conv_dw, the 28 launches of a Part-A2 step (B={b_step}; '
-          f'bf16 and f32, B=1 and B={b_step} within 1e-4 * max|want| at every '
-          f'layer, largest error {err:.3g}): device {k4["ms"]:.4f} ms, plain '
-          f'{k4["plain_ms"]:.4f} ms, bound {k4["bound_ms"]:.4f} ms; per layer '
+    print(f'rulebook_conv_dw, the {n_layers} launches of a {label} step '
+          f'(B={b_step}; bf16 and f32, B=1 and B={b_step} within 1e-4 * '
+          f'max|want| at every layer, largest error {err:.3g}): device '
+          f'{k4["ms"]:.4f} ms, plain {k4["plain_ms"]:.4f} ms, bound '
+          f'{k4["bound_ms"]:.4f} ms; per layer '
           + ', '.join(f'{r["layer"]}:{r["ms"]:.4f}' for r in shapes), flush=True)
 
-    names = [f'forward {n}' for n in range(1, 29)] + \
-        [f'df {n}' for n in range(1, 28)]
-    rows = [conv_timing(torch, name, f'Part-A2 step B={f.shape[0]}', f, rb, w,
+    names = [f'forward {n}' for n in range(1, n_layers + 1)] + \
+        [f'df {n}' for n in range(1, n_df + 1)]
+    rows = [conv_timing(torch, name, f'{label} step B={f.shape[0]}', f, rb, w,
                         valid) for name, (f, rb, w, valid) in zip(names, convs)]
     k3 = {key: sum(r[key] for r in rows) for key in ('ms', 'plain_ms',
                                                      'bound_ms')}
-    print(f'rulebook_conv, the 55 launches of a Part-A2 step (B={b_step}): '
-          f'device {k3["ms"]:.4f} ms (28 forward '
-          f'{sum(r["ms"] for r in rows[:28]):.4f}, 27 df '
-          f'{sum(r["ms"] for r in rows[28:]):.4f}), plain '
+    print(f'rulebook_conv, the {n_layers + n_df} launches of a {label} step '
+          f'(B={b_step}): device {k3["ms"]:.4f} ms ({n_layers} forward '
+          f'{sum(r["ms"] for r in rows[:n_layers]):.4f}, {n_df} df '
+          f'{sum(r["ms"] for r in rows[n_layers:]):.4f}), plain '
           f'{k3["plain_ms"]:.4f} ms, bound {k3["bound_ms"]:.4f} ms', flush=True)
     return ({'per_step_ms': k4['ms'], 'per_step_plain_ms': k4['plain_ms'],
              'per_step_bound_ms': k4['bound_ms'], 'max_abs_err': err,
              'layers': shapes},
             {'per_step_ms': k3['ms'], 'per_step_plain_ms': k3['plain_ms'],
              'per_step_bound_ms': k3['bound_ms'], 'step_layers': rows})
+
+
+def strided_df_pairs(batch, names):
+    """Each strided layer's df: K3 over ``rb_<name>_bwd`` against the
+    scatter-add over ``rb_<name>``."""
+    return [(f'strided {name}', batch[f'rb_{name}_bwd'], f'rb_{name}')
+            for name in names]
+
+
+def unet_gradient_phase(torch, trainer, batch):
+    """A Part-A² step (B = 2): 28 layers, 27 df (the inverse
+    convolutions' over the paired strided layer's forward rulebook
+    ``rb_down<n>``, W[k]^T; the strided layers' over ``rb_<name>_bwd``)."""
+    pairs = [(f'inverse {n}', batch[f'rb_down{n}'], f'rb_inv{n}')
+             for n in (4, 3, 2)] + \
+        strided_df_pairs(batch, ('down2', 'down3', 'down4', 'out'))
+    return step_kernel_phase(torch, trainer, batch, 'Part-A2', 28, 27, pairs)
 
 
 def pointrcnn_kernel_phase(torch, det):
@@ -2544,14 +2762,13 @@ def main():
     from lidardetection_tpu_torch.ops.vfe_cuda import pillar_vfe
     from lidardetection_tpu_torch.train import Trainer
 
-    def served(cfg_file, n_requests, per_request, earlier):
+    def served(cfg_file, n_requests, per_request, earlier, clouds=make_clouds):
         """Detector with live NMS candidates, warmed up, then the main
-        path: returns it, its clouds and the launch counts of the run."""
+        path: returns it, its clouds and the launch counts of the run.
+        `clouds(det, n, seed)` makes the requests' clouds."""
         det = Detector(cfg_file, device='cuda', seed=SEED)
-        if det.model.dense_head is not None:
-            with torch.no_grad():
-                det.model.dense_head.conv_cls_bias.zero_()
-        clouds = make_clouds(det, n_requests + 2, SEED)
+        zero_class_bias(torch, det.model)
+        clouds = clouds(det, n_requests + 2, SEED)
         for points in clouds[:2]:  # warm-up: cuDNN plans, allocator
             det.postprocess(det.forward(det.make_batch([points])))
         torch.cuda.synchronize()
@@ -2621,21 +2838,74 @@ def main():
     profiled.append((det, clouds[0]))
     del det
 
-    def trained(cfg_file, seed, per_step, earlier, schedule_steps=None):
-        """Trainer at full width, its batches, and the launch counts of
-        the timed steps of the training main path. The one-cycle schedule
-        spans `schedule_steps` (default: the steps taken here)."""
-        n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    print('== NuScenes CBGS SECOND multi-head ==', flush=True)
+    # VoxelResBackBone8x: conv_input, 7 residual blocks of two, 3 strided
+    # and conv_out, 19 K3; HeightCompression's scatter, 1 K2
+    torch.cuda.reset_peak_memory_stats()
+    det, clouds, launches_cbgs = served(
+        CFG_CBGS_SECOND, N_REQUESTS_VARIANTS,
+        dict(zip(wrappers, (0, 1, 19, 0, 0))), None, clouds=dense_clouds)
+    print(f'CBGS SECOND serving peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB (warm-up and '
+          f'timed requests); points in range per cloud '
+          f'{[in_range(c, det.info["point_cloud_range"]) for c in clouds]}',
+          flush=True)
+    k3_cbgs = request_kernel_phase(
+        torch, det, clouds[0], 'CBGS SECOND',
+        (('conv_input', 1), ('stage 1', 2), ('stage 2', 5), ('stage 3', 5),
+         ('stage 4', 5), ('conv_out', 1)))
+    forward_split(torch, det, clouds[0],
+                  modules=[('dense head: shared conv', det.model.dense_head.shared_conv)]
+                  + [(f'dense head: group {i}', h)
+                     for i, h in enumerate(det.model.dense_head.rpn_heads)])
+    compare_multiclass_phase(torch, det, CFG_CBGS_SECOND, clouds[0])
+    profiled.append((det, clouds[0]))
+    del det
+
+    print('== NuScenes CBGS PointPillar multi-head ==', flush=True)
+    # 5-feature pillars take the PFN stack (no K1, as in the JAX package)
+    torch.cuda.reset_peak_memory_stats()
+    det, clouds, launches_cbgs_pp = served(
+        CFG_CBGS_PP, N_REQUESTS_VARIANTS, dict(zip(wrappers, (0, 1, 0, 0, 0))),
+        None, clouds=dense_clouds)
+    print(f'CBGS PointPillar serving peak memory '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB', flush=True)
+    forward_split(torch, det, clouds[0])
+    del det
+
+    print('== PV-RCNN multiframe ==', flush=True)
+    det, clouds, launches_multiframe = served(
+        CFG_MULTIFRAME, N_REQUESTS_VARIANTS,
+        dict(zip(wrappers, (0, 1, 12, 0, 5))), None)
+    forward_split(torch, det, clouds[0])
+    compare_plain_phase(torch, det, CFG_MULTIFRAME, clouds[0], wrappers)
+    del det
+
+    print('== Part-A2 free ==', flush=True)
+    # UNetV2 without conv_out (RETURN_ENCODED_TENSOR false): 27 K3, no K2
+    det, clouds, launches_free = served(
+        CFG_PARTA2_FREE, N_REQUESTS_VARIANTS,
+        dict(zip(wrappers, (0, 0, 27, 0, 0))), None)
+    compare_plain_phase(torch, det, CFG_PARTA2_FREE, clouds[0], wrappers)
+    del det
+
+    def trained(cfg_file, seed, per_step, earlier, schedule_steps=None,
+                warmup=TRAIN_WARMUP, steps=TRAIN_STEPS, dense=False):
+        """Trainer at full width, its batches (`dense`: as dense as a
+        10-sweep NuScenes scan), and the launch counts of the timed steps
+        of the training main path. The one-cycle schedule spans
+        `schedule_steps` (default: the steps taken here)."""
+        n_steps = warmup + steps
         trainer = Trainer(cfg_file, device='cuda', seed=SEED,
                           total_steps=schedule_steps or n_steps)
-        batches, make_ms = train_batches(trainer, n_steps, seed)
+        batches, make_ms = train_batches(trainer, n_steps, seed, dense)
         what = f'voxelization at the train cap of {trainer.max_voxels}' \
             if trainer.vox is not None else \
             f'point sampling to {trainer.max_points} and shuffling'
         print(f'make_batch B={train_batch_size(trainer)} (host {what} and the '
               f'copy): p50 {make_ms:.2f} ms', flush=True)
         return trainer, batches, train_phase(torch, trainer, batches,
-                                             per_step, earlier)
+                                             per_step, earlier, warmup)
 
     print('== PointPillar training ==', flush=True)
     trainer, batches, launches_train = trained(
@@ -2702,6 +2972,43 @@ def main():
     trainer_pointrcnn, batch_pointrcnn = trainer, batches[-1]
     del trainer, batches
 
+    print('== NuScenes CBGS SECOND multi-head training ==', flush=True)
+    # 19 K3 forward + 14 submanifold and 4 strided df, 19 K4, 1 K2
+    trainer, batches, launches_train_cbgs = trained(
+        CFG_CBGS_SECOND, SEED + 1200,
+        dict(zip(wrappers, (0, 1, 19 + 18, 19, 0))), None,
+        schedule_steps=1000, dense=True)
+    split = step_split(torch, trainer, batches[-1])
+    k4_cbgs, k3_cbgs_step = step_kernel_phase(
+        torch, trainer, batches[-1], 'CBGS SECOND', 19, 18,
+        strided_df_pairs(batches[-1], ('down2', 'down3', 'down4', 'out')))
+    print(f'CBGS SECOND step: K3 {k3_cbgs_step["per_step_ms"]:.4f} ms and K4 '
+          f'{k4_cbgs["per_step_ms"]:.4f} ms of the {split["backward"]:.2f} ms '
+          'backward and the forward', flush=True)
+    trainer_cbgs, batch_cbgs = trainer, batches[-1]
+    del trainer, batches
+
+    print('== NuScenes CBGS PointPillar multi-head training ==', flush=True)
+    trainer, batches, launches_train_cbgs_pp = trained(
+        CFG_CBGS_PP, SEED + 1300, dict(zip(wrappers, (0, 1, 0, 0, 0))), None,
+        schedule_steps=1000, warmup=1, steps=1, dense=True)
+    del trainer, batches
+
+    print('== PV-RCNN multiframe training ==', flush=True)
+    trainer, batches, launches_train_multiframe = trained(
+        CFG_MULTIFRAME, SEED + 1400,
+        dict(zip(wrappers, (0, 1, 12 + 11, 12, 5))), None, schedule_steps=1000)
+    tracking_phase(torch, trainer, batches[-1])
+    del trainer, batches
+
+    print('== Part-A2 free training ==', flush=True)
+    # 27 K3 forward, 26 df (20 submanifold, 3 strided, 3 inverse), 27 K4
+    trainer, batches, launches_train_free = trained(
+        CFG_PARTA2_FREE, SEED + 1500,
+        dict(zip(wrappers, (0, 0, 27 + 26, 27, 0))), None, schedule_steps=1000,
+        warmup=1, steps=2)
+    del trainer, batches
+
     print('== evaluation ==', flush=True)
     launches_eval, annos, dataset = eval_phase(
         torch, CFG, dict(zip(wrappers, (1, 1, 0, 0, 0))))
@@ -2717,6 +3024,9 @@ def main():
     launches_eval_pointrcnn, annos, dataset = eval_phase(
         torch, CFG_POINTRCNN, dict(zip(wrappers, (0, 0, 0, 0, 2))))
     evals['PointRCNN'] = (dataset, annos)
+    launches_eval_mh, annos, dataset = eval_phase(
+        torch, CFG_SECOND_MH, dict(zip(wrappers, (0, 1, 12, 0, 0))))
+    evals['SECONDNet multi-head'] = (dataset, annos)
     protocol_phase(evals)
     precise_bn_phase(torch)
 
@@ -2728,12 +3038,13 @@ def main():
                         (trainer_second, batch_second),
                         (trainer_pvrcnn, batch_pvrcnn),
                         (trainer_parta2, batch_parta2),
-                        (trainer_pointrcnn, batch_pointrcnn)):
+                        (trainer_pointrcnn, batch_pointrcnn),
+                        (trainer_cbgs, batch_cbgs)):
         profile_run(torch, f'{each.cfg["MODEL"]["NAME"]} training step',
                     lambda: each.step(batch))
 
-    # launches: the sum over the fourteen main paths' runs, each counted
-    # from 0
+    # launches: the sum over the twenty-three main paths' runs, each
+    # counted from 0
     runs = {'PointPillar serving': launches, 'SECONDNet serving': launches_second,
             'PVRCNN serving': launches_pvrcnn,
             'PartA2Net serving': launches_parta2,
@@ -2746,7 +3057,16 @@ def main():
             'PointPillar eval': launches_eval,
             'SECONDNet eval': launches_eval_second,
             'PartA2Net eval': launches_eval_parta2,
-            'PointRCNN eval': launches_eval_pointrcnn}
+            'PointRCNN eval': launches_eval_pointrcnn,
+            'CBGS SECOND multi-head serving': launches_cbgs,
+            'CBGS PointPillar multi-head serving': launches_cbgs_pp,
+            'PV-RCNN multiframe serving': launches_multiframe,
+            'PartA2-free serving': launches_free,
+            'CBGS SECOND multi-head training': launches_train_cbgs,
+            'CBGS PointPillar multi-head training': launches_train_cbgs_pp,
+            'PV-RCNN multiframe training': launches_train_multiframe,
+            'PartA2-free training': launches_train_free,
+            'SECOND multi-head eval': launches_eval_mh}
     # Part-A²'s per-layer rows on a line of their own, its totals in the
     # kernels line
     parta2_rows = {'K3 request': k3_parta2.pop('layers'),
@@ -2755,11 +3075,20 @@ def main():
     print(json.dumps({'parta2_layers': parta2_rows}), flush=True)
     k3['parta2'] = {**k3_parta2, **k3_parta2_step}
     k4['parta2'] = k4_parta2
+    # VoxelResBackBone8x's (the CBGS SECOND multi-head) likewise
+    print(json.dumps({'cbgs_layers': {
+        'K3 request': k3_cbgs.pop('layers'),
+        'K3 step': k3_cbgs_step.pop('step_layers'),
+        'K4 step': k4_cbgs.pop('layers')}}), flush=True)
+    k3['cbgs'] = {**k3_cbgs, **k3_cbgs_step}
+    k4['cbgs'] = k4_cbgs
     # K5 at PointRCNN's two levels: its rows beside PV-RCNN's five sources
     k5['pointrcnn'] = k5_pointrcnn
     k5['max_abs_err'] = max(k5['max_abs_err'], k5_pointrcnn_err)
-    k3['max_abs_err'] = max(k3['max_abs_err'], k3_parta2['max_abs_err'])
-    k4['max_abs_err'] = max(k4['max_abs_err'], k4_parta2['max_abs_err'])
+    k3['max_abs_err'] = max(k3['max_abs_err'], k3_parta2['max_abs_err'],
+                            k3_cbgs['max_abs_err'])
+    k4['max_abs_err'] = max(k4['max_abs_err'], k4_parta2['max_abs_err'],
+                            k4_cbgs['max_abs_err'])
     kernels = [k1, k2, k3, k4, k5]
     for k in kernels:
         k['launches'] = sum(run.get(k['name'], 0) for run in runs.values())

@@ -1,5 +1,5 @@
 """flax variables of the JAX PointPillar, SECOND, PV-RCNN, Part-A² or
-PointRCNN -> this package's ``state_dict``.
+PointRCNN, or of a variant of them -> this package's ``state_dict``.
 
 Input: the flax ``params`` and ``batch_stats`` trees as nested dicts of
 numpy arrays (``jax.device_get`` of the JAX package's variables); no JAX is
@@ -22,7 +22,12 @@ needed here. Names map one to one except:
     ``sub_convs.<n>``; inside them ``Dense_<n>`` -> ``dense.<n>`` (its
     ``kernel`` (in, out) keeps its layout) and ``MaskedBatchNorm_<n>`` ->
     ``bn.<n>`` (a module with one BatchNorm: ``bn``);
-  * ``Conv_0/kernel`` HWIO -> ``weight`` OIHW, and (X, Y, Z, I, O) ->
+  * the multi-head dense head: ``rpn_heads_<i>`` -> ``rpn_heads.<i>``,
+    inside a head ``Conv_<n>`` -> ``convs.<n>`` (with its bias) and
+    ``BaseBEVBackbone_0`` -> ``backbone``; ``shared_conv`` keeps its name;
+  * the PillarVFE stack: ``PFNLayer_<n>`` -> ``pfn_layers.<n>``, its
+    ``Dense_0`` -> ``dense.0``;
+  * ``Conv_<n>/kernel`` HWIO -> ``weight`` OIHW, and (X, Y, Z, I, O) ->
     ``weight`` (O, I, X, Y, Z) for a three-dimensional one;
   * ``ConvTranspose_0/kernel`` HWIO -> flipped in both spatial axes, then
     ``weight`` (I, O, H, W): flax's transposed convolution does not flip
@@ -50,8 +55,10 @@ _SCOPES = {'ConvBNReLU': 'units', 'SparseConvLayer': 'convs',
            'PointnetFPModule': 'fp_layers', 'ConvMLP': 'conv_mlps',
            'SharedMLP': 'mlps', 'FCHead': 'fc_heads', 'Dense': 'dense',
            'pre_proj': 'pre_proj', 'xyz_proj': 'xyz_proj', 'pre_bn': 'pre_bn',
-           'MaskedDenseSubMConv3d': 'sub_convs'}
-_SINGLE = {'RoIGridPool_0': 'roi_grid_pool', 'FCLayers_0': 'fc_layers'}
+           'MaskedDenseSubMConv3d': 'sub_convs', 'rpn_heads': 'rpn_heads',
+           'PFNLayer': 'pfn_layers'}
+_SINGLE = {'RoIGridPool_0': 'roi_grid_pool', 'FCLayers_0': 'fc_layers',
+           'BaseBEVBackbone_0': 'backbone'}
 # Dense + BatchNorm stacks: their BatchNorms are the list `bn`, elsewhere a
 # module's one BatchNorm is `bn`
 _STACKS = ('pfe', 'roi_head', 'SharedMLP_', 'FCLayers_', 'FCHead_',
@@ -72,10 +79,12 @@ def _convert(path, value):
             parts += ['bn', index] if stack else ['bn']
         elif scope in _SCOPES:
             parts += [_SCOPES[scope], index]
+        elif scope == 'Conv' and i > 0 and path[i - 1].startswith('rpn_heads'):
+            parts += ['convs', index]
         elif key not in ('Conv_0', 'ConvTranspose_0'):
             parts.append(key)
     scope, leaf = (path[-2] if len(path) > 1 else ''), path[-1]
-    if scope == 'Conv_0' and leaf == 'kernel':
+    if scope.startswith('Conv_') and leaf == 'kernel':
         return '.'.join(parts + ['weight']), value.transpose(
             _TO_TORCH[value.ndim])
     if scope == 'ConvTranspose_0' and leaf == 'kernel':
@@ -110,7 +119,7 @@ def state_dict_to_flax(state, *trees):
             name, _ = _convert(path, np.asarray(value))
             leaf = state[name].detach().cpu().numpy()
             scope = path[-2] if len(path) > 1 else ''
-            if scope == 'Conv_0' and key == 'kernel':
+            if scope.startswith('Conv_') and key == 'kernel':
                 leaf = leaf.transpose(_TO_FLAX[leaf.ndim])  # -> (*spatial, I, O)
             elif scope == 'ConvTranspose_0' and key == 'kernel':
                 leaf = leaf.transpose(2, 3, 0, 1)[::-1, ::-1]

@@ -1,5 +1,6 @@
 """Box coders (lidardetection_tpu/core/box_coders.py): the anchor residual
-coder (:14) and PointRCNN's point residual coder (:131-186)."""
+coder (:14), the two legacy decoders (:77-130) and PointRCNN's point
+residual coder (:131-186)."""
 
 import dataclasses
 
@@ -73,6 +74,57 @@ class ResidualCoder:
         return torch.stack([xg, yg, zg, dxg, dyg, dzg, rg, *extras], dim=-1)
 
 
+def _previous_decode(box_encodings, anchors, roi):
+    """The legacy decode: size residuals in (w, l, h) order, so dx takes
+    the second and dy the first; the heading ``ra - rt`` for the RoI
+    decoder, ``rt + ra`` otherwise; every extra column added to its
+    anchor's."""
+    xa, ya, za, dxa, dya, dza, ra = anchors[..., :7].unbind(-1)
+    xt, yt, zt, wt, lt, ht, rt = box_encodings[..., :7].unbind(-1)
+    diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+    xg = xt * diagonal + xa
+    yg = yt * diagonal + ya
+    zg = zt * dza + za
+    dxg = torch.exp(lt) * dxa
+    dyg = torch.exp(wt) * dya
+    dzg = torch.exp(ht) * dza
+    rg = ra - rt if roi else rt + ra
+    extras = [box_encodings[..., 7 + i] + anchors[..., 7 + i]
+              for i in range(anchors.shape[-1] - 7)]
+    return torch.stack([xg, yg, zg, dxg, dyg, dzg, rg, *extras], dim=-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class PreviousResidualDecoder:
+    """Legacy anchor decoder (decode only): `_previous_decode`."""
+
+    code_size: int = 7
+
+    @property
+    def full_code_size(self):
+        return self.code_size
+
+    @staticmethod
+    def decode(box_encodings, anchors):
+        return _previous_decode(box_encodings, anchors, roi=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class PreviousResidualRoIDecoder:
+    """Legacy RoI decoder (decode only): `_previous_decode` with the
+    heading ``ra - rt``."""
+
+    code_size: int = 7
+
+    @property
+    def full_code_size(self):
+        return self.code_size
+
+    @staticmethod
+    def decode(box_encodings, anchors):
+        return _previous_decode(box_encodings, anchors, roi=True)
+
+
 @dataclasses.dataclass(frozen=True)
 class PointResidualCoder:
     """8-dim box residuals of a point: the offsets over the class's mean
@@ -141,14 +193,12 @@ class PointResidualCoder:
 
 
 _CODERS = {'ResidualCoder': ResidualCoder,
+           'PreviousResidualDecoder': PreviousResidualDecoder,
+           'PreviousResidualRoIDecoder': PreviousResidualRoIDecoder,
            'PointResidualCoder': PointResidualCoder}
 
 
 def build_box_coder(name, **kwargs):
-    if name not in _CODERS:
-        raise NotImplementedError(
-            f'box coder {name} is not ported yet: see ROADMAP.md queue 1, '
-            '"Variants" (pointrcnn_iou, PartA2_free)')
     cls = _CODERS[name]
     fields = {f.name for f in dataclasses.fields(cls)}
     kwargs = {k: v for k, v in kwargs.items() if k in fields}

@@ -8,7 +8,8 @@ written out as elementwise float32 multiply-adds, never ``einsum`` or
 ``matmul``: a reduced-precision product (bf16 on the TPU, TF32 on the
 card) breaks the collinear-edge tie handling for near-identical boxes.
 
-NMS is exact greedy in score order, walked in blocks as the JAX package
+NMS is exact greedy in score order (rotated, or on the nearest
+axis-aligned rectangles for ``nms_normal``), walked in blocks as the JAX package
 walks it (lidardetection_tpu/core/iou3d.py:420-595): the next `block` live
 candidates of every sample have their IoU rows against all candidates
 computed on the device, one copy to the host resolves the block in order
@@ -148,8 +149,9 @@ def _iou_parts(parts_a, area_a, parts_b, area_b):
 
 def nms_bev_batched(boxes, scores, thresh, pre_maxsize, post_maxsize,
                     valid_mask=None, assume_sorted=False, block=32,
-                    adaptive_tier=512):
-    """Batched rotated-BEV greedy NMS (lidardetection_tpu/core/iou3d.py:544).
+                    adaptive_tier=512, aligned=False):
+    """Batched rotated-BEV greedy NMS (lidardetection_tpu/core/iou3d.py:544),
+    or with `aligned` the axis-aligned one of ``nms_normal_bev`` (:637).
 
     Args: boxes (B, N, 7); scores (B, N); valid_mask (B, N) optional bool.
         assume_sorted: scores already descend along N with invalid rows at
@@ -159,6 +161,9 @@ def nms_bev_batched(boxes, scores, thresh, pre_maxsize, post_maxsize,
         adaptive_tier: when no sample has more live candidates than this,
             the walk runs on that prefix of the score order (live rows sort
             first, so the result is the same); 0 disables.
+        aligned: the IoU of each box's nearest axis-aligned BEV rectangle
+            (``boxes_iou_normal``), as the JAX package's ``nms_normal_bev``
+            walks it, in place of the rotated IoU.
     Returns: (indices (B, post) int64 into the input N axis, padded with 0;
     keep_mask (B, post) bool; num_kept (B,) int64; rows_read (B,) int64
     numpy, the IoU rows each sample's walk computed).
@@ -190,10 +195,21 @@ def nms_bev_batched(boxes, scores, thresh, pre_maxsize, post_maxsize,
         width = adaptive_tier
     live = live[:, :width].copy()
     all_boxes = top_boxes[:, :width, :7]
-    parts = _box_clip_parts(all_boxes)
-    area = all_boxes[..., 3] * all_boxes[..., 4]
-    all_parts = tuple(p[:, None] for p in parts)
     rows = torch.arange(bsz, device=dev)[:, None]
+    if aligned:
+        rect = boxes3d_lidar_to_aligned_bev_boxes(all_boxes)  # (B, W, 4)
+
+        def block_iou(idx):
+            return _iou_normal(rect[rows, idx][:, :, None], rect[:, None])
+    else:
+        parts = _box_clip_parts(all_boxes)
+        area = all_boxes[..., 3] * all_boxes[..., 4]
+        all_parts = tuple(p[:, None] for p in parts)
+
+        def block_iou(idx):
+            return _iou_parts(tuple(p[rows, idx][:, :, None] for p in parts),
+                              area[rows, idx][:, :, None], all_parts,
+                              area[:, None, :])
 
     kept = [[] for _ in range(bsz)]
     rows_read = np.zeros(bsz, np.int64)
@@ -209,10 +225,7 @@ def nms_bev_batched(boxes, scores, thresh, pre_maxsize, post_maxsize,
         for s in active:
             pos = np.flatnonzero(live[s])[:m]
             blk[s, :pos.size], count[s] = pos, pos.size
-        idx = torch.from_numpy(blk).to(dev)
-        iou = _iou_parts(tuple(p[rows, idx][:, :, None] for p in parts),
-                         area[rows, idx][:, :, None], all_parts,
-                         area[:, None, :])
+        iou = block_iou(torch.from_numpy(blk).to(dev))
         sup = (iou > thresh).cpu().numpy()  # (B, m, width)
         for s in active:
             rows_read[s] += count[s]
@@ -238,32 +251,37 @@ def nms_bev_batched(boxes, scores, thresh, pre_maxsize, post_maxsize,
     return out, keep_mask, num_kept, rows_read
 
 
+def _iou_normal(a, b):
+    """Axis-aligned IoU of broadcastable (..., 4) [x1, y1, x2, y2] boxes."""
+    x_min = torch.maximum(a[..., 0], b[..., 0])
+    x_max = torch.minimum(a[..., 2], b[..., 2])
+    y_min = torch.maximum(a[..., 1], b[..., 1])
+    y_max = torch.minimum(a[..., 3], b[..., 3])
+    x_len = (x_max - x_min).clamp(min=0)
+    y_len = (y_max - y_min).clamp(min=0)
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    intersection = x_len * y_len
+    return intersection / (area_a + area_b - intersection).clamp(min=1e-6)
+
+
 def boxes_iou_normal(boxes_a, boxes_b):
     """Axis-aligned IoU of (N, 4) and (M, 4) [x1, y1, x2, y2] boxes -> (N, M)
     (lidardetection_tpu/core/iou3d.py:30). Elementwise float32 in the JAX
     code's operation order: the target assigner compares these values for
     equality."""
-    x_min = torch.maximum(boxes_a[:, None, 0], boxes_b[None, :, 0])
-    x_max = torch.minimum(boxes_a[:, None, 2], boxes_b[None, :, 2])
-    y_min = torch.maximum(boxes_a[:, None, 1], boxes_b[None, :, 1])
-    y_max = torch.minimum(boxes_a[:, None, 3], boxes_b[None, :, 3])
-    x_len = (x_max - x_min).clamp(min=0)
-    y_len = (y_max - y_min).clamp(min=0)
-    area_a = (boxes_a[:, 2] - boxes_a[:, 0]) * (boxes_a[:, 3] - boxes_a[:, 1])
-    area_b = (boxes_b[:, 2] - boxes_b[:, 0]) * (boxes_b[:, 3] - boxes_b[:, 1])
-    intersection = x_len * y_len
-    return intersection / (area_a[:, None] + area_b[None, :]
-                           - intersection).clamp(min=1e-6)
+    return _iou_normal(boxes_a[:, None], boxes_b[None, :])
 
 
 def boxes3d_lidar_to_aligned_bev_boxes(boxes3d):
-    """(N, 7+) -> (N, 4) nearest axis-aligned BEV box (iou3d.py:47)."""
-    rot_angle = limit_period(boxes3d[:, 6], offset=0.5, period=math.pi).abs()
+    """(..., 7+) -> (..., 4) nearest axis-aligned BEV box (iou3d.py:47)."""
+    rot_angle = limit_period(boxes3d[..., 6], offset=0.5, period=math.pi).abs()
     swap = rot_angle >= math.pi / 4
-    dx = torch.where(swap, boxes3d[:, 4], boxes3d[:, 3])
-    dy = torch.where(swap, boxes3d[:, 3], boxes3d[:, 4])
+    dx = torch.where(swap, boxes3d[..., 4], boxes3d[..., 3])
+    dy = torch.where(swap, boxes3d[..., 3], boxes3d[..., 4])
     half = torch.stack([dx, dy], dim=-1) / 2
-    return torch.cat([boxes3d[:, 0:2] - half, boxes3d[:, 0:2] + half], dim=-1)
+    return torch.cat([boxes3d[..., 0:2] - half, boxes3d[..., 0:2] + half],
+                     dim=-1)
 
 
 def boxes3d_nearest_bev_iou(boxes_a, boxes_b):

@@ -4,6 +4,18 @@ from a seed, for the server's CLI and the chip smoke run; the training set
 and its loader; and the eval side (``SyntheticCalib``,
 ``kitti_anno_from_lidar``, the dataset's ``generate_prediction_dicts`` and
 ``evaluation``, and the test-mode loader of ``build_test_loader``).
+
+A config's data decides three things more (`scene_options`), as the JAX
+package's SyntheticDataset reads them: with PRED_VELOCITY the gt boxes are
+NuScenes' ``[..., heading, vx, vy]``; with STACK_FRAME_SIZE T each box has
+its T frame poses, ``locations`` (G, T, 3) and ``rotations_y`` (G, T);
+and points with more than 4 features (NuScenes' timestamp, the PlusAI
+multiframe set's frame index) carry those columns as zeros, a key
+frame's. The JAX package's scenes have 4 columns whatever the config, and
+its point encoder slices the fifth into nothing, so its model runs at
+width 4 on them (ROADMAP.md section 3); the port builds its first layers
+at the config's width, as the reference does. `make_sweeps` stacks
+several scans into one cloud as dense as a multi-sweep NuScenes scan.
 """
 
 import warnings
@@ -113,67 +125,143 @@ def make_scene(rng, point_cloud_range, num_objects=8, points_per_obj=120,
     return points, np.array(gt_boxes, np.float32), np.array(gt_names)
 
 
+def make_sweeps(rng, point_cloud_range, sweeps, num_ground=18000,
+                class_names=('Car', 'Pedestrian', 'Cyclist')):
+    """One cloud of `sweeps` scans (``make_scene`` each), the k-th moved
+    back by 0.5 k m along x, as an ego vehicle's earlier sweeps lie at 10
+    m/s, with a fifth column of its time lag, 0.05 k s (a 20 Hz lidar):
+    NuScenes' multi-sweep input. The gt boxes are the key frame's (the
+    first scan's). Returns (points (N, 5) float32, gt_boxes (M, 7),
+    gt_names (M,))."""
+    clouds = []
+    for k in range(sweeps):
+        points, boxes, names = make_scene(rng, point_cloud_range,
+                                          num_ground=num_ground,
+                                          class_names=class_names)
+        if k == 0:
+            gt_boxes, gt_names = boxes, names
+        points[:, 0] -= 0.5 * k
+        lag = np.full((len(points), 1), 0.05 * k, np.float32)
+        clouds.append(np.concatenate([points, lag], axis=1))
+    return np.concatenate(clouds, axis=0), gt_boxes, gt_names
+
+
+def scene_options(data_cfg, num_point_features):
+    """The `SyntheticDataset` options a DATA_CONFIG sets."""
+    return {'num_point_features': int(num_point_features),
+            'pred_velocity': bool(data_cfg.get('PRED_VELOCITY', False)),
+            'stack_frame_size': int(data_cfg.get('STACK_FRAME_SIZE', 0))}
+
+
 def pad_gt_boxes(gt_boxes, gt_names, class_names, point_cloud_range,
-                 max_gt_boxes=64, in_range_only=True):
-    """Ground truth of one scene: (max_gt_boxes, 8) float32, the 1-based
-    class id last and 0 marking a padding row. Boxes of other classes are
-    dropped, and with `in_range_only` (training) those wholly outside the
-    range too; test mode keeps them, as the JAX package's
-    ``DatasetTemplate.prepare_data`` does."""
+                 max_gt_boxes=64, in_range_only=True, side=None):
+    """Ground truth of one scene: (max_gt_boxes, D + 1) float32 for (M, D)
+    boxes, the 1-based class id last and 0 marking a padding row. Boxes of
+    other classes are dropped, and with `in_range_only` (training) those
+    wholly outside the range too; test mode keeps them, as the JAX
+    package's ``DatasetTemplate.prepare_data`` does. `side`, a dict of
+    per-box arrays (the multiframe ``locations`` and ``rotations_y``), is
+    cut and padded alike and returned beside the boxes."""
     keep = np.array([n in class_names for n in gt_names], dtype=bool)
     if keep.any() and in_range_only:
         keep[keep] = mask_boxes_outside_range(gt_boxes[keep],
                                               point_cloud_range)
     classes = np.array([class_names.index(n) + 1 for n in gt_names[keep]],
                        np.float32)
-    out = np.zeros((max_gt_boxes, 8), np.float32)
+    d = gt_boxes.shape[1] if gt_boxes.ndim == 2 else 7
+    out = np.zeros((max_gt_boxes, d + 1), np.float32)
     n = min(int(keep.sum()), max_gt_boxes)
-    out[:n, :7] = gt_boxes[keep][:n]
-    out[:n, 7] = classes[:n]
-    return out
+    out[:n, :d] = gt_boxes.reshape(-1, d)[keep][:n]
+    out[:n, d] = classes[:n]
+    if side is None:
+        return out
+    padded = {}
+    for key, arr in side.items():
+        padded[key] = np.zeros((max_gt_boxes,) + arr.shape[1:], np.float32)
+        padded[key][:n] = arr[keep][:n]
+    return out, padded
 
 
 class SyntheticDataset:
     """In-memory set of `num_scenes` scenes made from `seed` (scene i from
     ``RandomState(seed * 100003 + i)``, as the JAX package's
-    SyntheticDataset draws them). Items are ``(points (N, 4), gt_boxes
-    (max_gt_boxes, 8))``; in test mode (``training=False``) gt boxes outside
-    the range are kept and an item also carries its index, the frame id:
-    ``(points, gt_boxes, frame_id)``. No augmentation."""
+    SyntheticDataset draws them, its velocities and frame poses after the
+    scene). Items are ``(points (N, F), gt_boxes (max_gt_boxes, D + 1))``
+    with F = `num_point_features` and D 7, or 9 with `pred_velocity`; with
+    `stack_frame_size` a training item carries a third entry, ``{'locations':
+    (max_gt_boxes, T, 3), 'rotations_y': (max_gt_boxes, T)}``. In test
+    mode (``training=False``) gt boxes outside the range are kept and an
+    item carries its index, the frame id, third: ``(points, gt_boxes,
+    frame_id)``. No augmentation."""
 
     def __init__(self, class_names, point_cloud_range, num_scenes=64, seed=0,
-                 max_gt_boxes=64, training=True):
+                 max_gt_boxes=64, training=True, num_point_features=4,
+                 pred_velocity=False, stack_frame_size=0):
         self.class_names = tuple(class_names)
         self.point_cloud_range = np.asarray(point_cloud_range, np.float32)
         self.num_scenes, self.seed = num_scenes, seed
         self.max_gt_boxes, self.training = max_gt_boxes, training
+        self.num_point_features = num_point_features
+        self.pred_velocity, self.stack_frame_size = pred_velocity, stack_frame_size
 
     def __len__(self):
         return self.num_scenes
 
     def scene(self, index):
         """Scene `index`: (points (N, 4), gt_boxes (M, 7), gt_names (M,))."""
+        return self._draw(index)[:3]
+
+    def _draw(self, index):
         rng = np.random.RandomState(self.seed * 100003 + index)
-        return make_scene(rng, self.point_cloud_range,
-                          class_names=self.class_names)
+        points, gt_boxes, gt_names = make_scene(
+            rng, self.point_cloud_range, class_names=self.class_names)
+        return points, gt_boxes, gt_names, rng
+
+    def sample(self, index):
+        """Scene `index` as the config's data holds it: points with
+        `num_point_features` columns, gt boxes with the velocity columns
+        when asked for, and the frame poses (a dict, or None)."""
+        points, gt_boxes, gt_names, rng = self._draw(index)
+        if self.pred_velocity:
+            vel = (rng.randn(len(gt_boxes), 2) * 2.0).astype(np.float32)
+            gt_boxes = np.concatenate([gt_boxes.reshape(-1, 7), vel], axis=1)
+        side = None
+        if self.stack_frame_size > 0:
+            t, n = self.stack_frame_size, len(gt_boxes)
+            vel = rng.randn(n, 2) * 1.0  # m a frame
+            locations = np.repeat(gt_boxes.reshape(n, -1)[:, None, 0:3], t,
+                                  axis=1)
+            for i in range(t):
+                locations[:, i, 0:2] -= vel * (t - 1 - i)
+            side = {'locations': locations.astype(np.float32),
+                    'rotations_y': np.repeat(gt_boxes.reshape(n, -1)[:, None, 6],
+                                             t, axis=1).astype(np.float32)}
+        extra = self.num_point_features - points.shape[1]
+        if extra > 0:
+            points = np.concatenate(
+                [points, np.zeros((len(points), extra), np.float32)], axis=1)
+        return points, gt_boxes, gt_names, side
 
     def __getitem__(self, index):
-        points, gt_boxes, gt_names = self.scene(index)
+        points, gt_boxes, gt_names, side = self.sample(index)
         gt = pad_gt_boxes(gt_boxes, gt_names, self.class_names,
                           self.point_cloud_range, self.max_gt_boxes,
-                          in_range_only=self.training)
-        return (points, gt) if self.training else (points, gt, index)
+                          in_range_only=self.training, side=side)
+        if not self.training:
+            return (points, gt if side is None else gt[0], index)
+        return (points, gt) if side is None else (points, *gt)
 
     def generate_prediction_dicts(self, batch_dict, pred_dicts, class_names):
         """KITTI annos of a batch's kept detections (numpy `pred_dicts`,
-        padded, with ``num_preds``)."""
+        padded, the kept rows marked by ``pred_mask``: the multi-class NMS
+        leaves gaps between them)."""
         annos = []
         for i in range(batch_dict['batch_size']):
-            n = int(pred_dicts['num_preds'][i])
-            boxes = np.asarray(pred_dicts['pred_boxes'][i][:n])
-            labels = np.asarray(pred_dicts['pred_labels'][i][:n]).astype(int)
+            kept = np.asarray(pred_dicts['pred_mask'][i], bool)
+            boxes = np.asarray(pred_dicts['pred_boxes'][i][kept])[:, :7]
+            labels = np.asarray(pred_dicts['pred_labels'][i][kept]).astype(int)
             names = np.array([class_names[l - 1] for l in labels])
-            scores = np.asarray(pred_dicts['pred_scores'][i][:n])
+            scores = np.asarray(pred_dicts['pred_scores'][i][kept])
             anno = kitti_anno_from_lidar(boxes, names, scores)
             anno['frame_id'] = batch_dict['frame_id'][i]
             annos.append(anno)
@@ -279,7 +367,8 @@ def build_test_loader(cfg, batch_size, num_scenes, seed=0):
     dataset = SyntheticDataset(
         cfg['CLASS_NAMES'], info['point_cloud_range'], num_scenes=num_scenes,
         seed=seed, max_gt_boxes=int(data_cfg.get('MAX_GT_BOXES', 64)),
-        training=False)
+        training=False,
+        **scene_options(data_cfg, info['num_point_features']))
 
     def voxels(items):
         max_voxels = int(vox['MAX_NUMBER_OF_VOXELS']['test'])

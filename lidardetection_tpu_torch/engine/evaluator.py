@@ -2,9 +2,10 @@
 
 Batches (a voxel table, or a point-based config's sampled raw points)
 run through the eval step (``parallel/train_step.py::make_eval_step``); the kept detections of each sample come back to the
-host as numpy, become KITTI annos through the dataset's
-``generate_prediction_dicts`` and are scored by its ``evaluation`` (the
-official protocol). A single process only: the distributed merge of the
+host as numpy (the rows that ``pred_mask`` marks: the multi-class NMS of
+the multi-head detectors leaves gaps between them), become KITTI annos
+through the dataset's ``generate_prediction_dicts`` and are scored by its
+``evaluation`` (the official protocol). A single process only: the distributed merge of the
 JAX package (``merge_results_dist``) is not ported.
 """
 
@@ -23,7 +24,7 @@ DISTRIBUTED_NOT_PORTED = ('evaluation across processes is not ported yet: '
 def _to_host(tree):
     if isinstance(tree, dict):
         return {k: _to_host(v) for k, v in tree.items()}
-    return tree.cpu().numpy()
+    return tree.cpu().numpy() if torch.is_tensor(tree) else tree
 
 
 def eval_one_epoch(model, loader, post_cfg, class_names, logger,

@@ -37,12 +37,14 @@ STAGES = (('x_conv2', (1, 1, 1)), ('x_conv3', (1, 1, 1)),
           ('x_conv4', (0, 1, 1)))
 
 
-def encode(batch, convs, blocks, spatial_shape, capacities, last_pad=0):
+def encode(batch, convs, blocks, spatial_shape, capacities, last_pad=0,
+           with_out=True):
     """VoxelBackBone8x's encoder, shared with UNetV2's: the layers come from
     the iterators ``convs`` and ``blocks`` in creation order (``blocks``
     None: plain submanifold layers, else one SparseBasicBlock a layer).
     Returns the four stages' SparseTensors, each stage's submanifold
-    rulebook, and conv_out's SparseTensor (padding ``last_pad``)."""
+    rulebook, and conv_out's SparseTensor (padding ``last_pad``; None
+    without `with_out`, a UNetV2 with RETURN_ENCODED_TENSOR false)."""
     feats = batch['voxel_features']
     cap = feats.shape[1]
     host = 'rb_subm1' in batch
@@ -91,6 +93,8 @@ def encode(batch, convs, blocks, spatial_shape, capacities, last_pad=0):
                         f'down{stage + 2}')
         st, rules[name] = subm_stack(st, 2, f'subm{stage + 2}')
         stages[name] = st
+    if not with_out:
+        return stages, rules, None
     # conv_out: z-compression (3,1,1)/(2,1,1)
     st_out = downsample(st, (2, 1, 1), (last_pad,) * 3, (3, 1, 1), 3, 'out')
     return stages, rules, st_out
@@ -145,11 +149,12 @@ class SparseBasicBlock(nn.Module):
         return out * valid_mask[..., None].to(out.dtype)
 
 
-def encoder_layers(input_channels, channels, residual, **kw):
+def encoder_layers(input_channels, channels, residual, with_out=True, **kw):
     """The encoder's layers in the JAX module's creation order: conv_input,
     conv1, then for each later stage its downsample and its submanifold
     layers (SparseBasicBlocks in ``blocks`` when `residual`), and conv_out
-    to 128 channels. `channels` maps ``x_conv1``..``x_conv4`` to widths."""
+    to 128 channels when `with_out`. `channels` maps ``x_conv1``..
+    ``x_conv4`` to widths."""
     convs, blocks = [], []
 
     def subm(width, n_blocks):
@@ -167,7 +172,8 @@ def encoder_layers(input_channels, channels, residual, **kw):
         convs.append(SparseConvLayer(c_in, channels[name], 27, **kw))
         subm(channels[name], 2)
         c_in = channels[name]
-    convs.append(SparseConvLayer(c_in, 128, 3, **kw))  # conv_out
+    if with_out:
+        convs.append(SparseConvLayer(c_in, 128, 3, **kw))  # conv_out
     return convs, blocks
 
 

@@ -70,7 +70,9 @@ class UNetV2(nn.Module):
                                   'x_conv3': 64, 'x_conv4': 64}
         kw = {'dtype': dtype, 'generator': generator}
         ch = self.backbone_channels
-        convs, _ = encoder_layers(input_channels, ch, False, **kw)
+        self.with_out = bool(model_cfg.get('RETURN_ENCODED_TENSOR', True))
+        convs, _ = encoder_layers(input_channels, ch, False,
+                                  with_out=self.with_out, **kw)
         blocks = []
         bottom = ch['x_conv4']
         for lateral, width, _, up_width, inv in self._DECODER:
@@ -89,9 +91,12 @@ class UNetV2(nn.Module):
         host = 'rb_subm1' in batch
         convs, blocks = iter(self.convs), iter(self.blocks)
         stages, rules, st_out = encode(batch, convs, None, self.spatial_shape,
-                                       self.capacities, self.last_pad)
-        out = {**batch, 'encoded_spconv_tensor': sparse.sparse_to_dense(st_out),
-               'encoded_spconv_tensor_stride': 8}
+                                       self.capacities, self.last_pad,
+                                       with_out=self.with_out)
+        out = dict(batch)
+        if st_out is not None:
+            out.update(encoded_spconv_tensor=sparse.sparse_to_dense(st_out),
+                       encoded_spconv_tensor_stride=8)
 
         # ---- decoder: the UR blocks ----
         x = stages['x_conv4'].features

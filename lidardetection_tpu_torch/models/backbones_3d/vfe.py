@@ -1,7 +1,7 @@
-"""Voxel feature encoders: MeanVFE and the single-PFN PillarVFE
-(lidardetection_tpu/models/backbones_3d/vfe.py:17-26 and :58-223).
+"""Voxel feature encoders: MeanVFE and PillarVFE
+(lidardetection_tpu/models/backbones_3d/vfe.py:17-223).
 
-Batch layout: voxels (B, V, P, 4) float32 at fixed capacity,
+Batch layout: voxels (B, V, P, C) float32 at fixed capacity,
 voxel_num_points (B, V) int32 (0 marks an empty slot), voxel_coords
 (B, V, 3) int32 (z, y, x), -1 padded.
 
@@ -17,13 +17,20 @@ the JAX package does, and shares ``pfn_kernel`` and ``pfn_bn_*`` with the
 eval branch. Its BatchNorm statistics ``pfn_mean``/``pfn_var`` move by
 ``momentum`` (named in ``bn_statistics`` for precise-BN,
 engine/bn_recalibrate.py).
+
+Any other PillarVFE (several PFN layers, no BatchNorm, relative xyz,
+the distance feature, or points with other than 4 features, as NuScenes'
+5) takes the JAX package's general path (vfe.py:29-55 and :104-125): the
+concatenated point features, masked, through a stack of `PFNLayer`s. K1's
+contract (4 features, one layer) does not cover it, so no kernel runs
+there, as in the JAX package.
 """
 
 import torch
 from torch import nn
 
 from ...ops.vfe_cuda import pillar_vfe
-from ..layers import BN_EPS, BN_MOMENTUM, lecun_normal_
+from ..layers import BN_EPS, BN_MOMENTUM, Dense, MaskedBatchNorm, lecun_normal_
 
 
 class MeanVFE(nn.Module):
@@ -35,25 +42,71 @@ class MeanVFE(nn.Module):
         return {**batch, 'voxel_features': voxels.sum(dim=2) / denom[..., None]}
 
 
+class PFNLayer(nn.Module):
+    """Linear (+ masked BatchNorm) + ReLU, then the max over a pillar's
+    points (vfe.py:29-55): the last layer returns (B, V, C), the others
+    (B, V, P, C) with the max beside each point's C / 2 channels.
+    ``dense.0`` and ``bn`` are flax's ``Dense_0`` and
+    ``MaskedBatchNorm_0``; the Dense has a bias only without the norm."""
+
+    def __init__(self, in_channels, out_channels, use_norm=True,
+                 last_layer=False, dtype=None, generator=None):
+        super().__init__()
+        out = out_channels if last_layer else out_channels // 2
+        self.last_layer, self.dtype = last_layer, dtype
+        self.dense = nn.ModuleList([Dense(in_channels, out, bias=not use_norm,
+                                          dtype=dtype, generator=generator)])
+        self.bn = MaskedBatchNorm(out, axis=-1) if use_norm else None
+
+    def forward(self, x, pillar_valid):
+        x = self.dense[0](x)
+        if self.bn is not None:
+            # every point row of a valid pillar enters the statistics
+            x = self.bn(x, mask=pillar_valid[..., None].expand(x.shape[:-1]))
+        x = torch.relu(x)
+        x_max = x.amax(dim=2, keepdim=True)
+        if self.last_layer:
+            return x_max.squeeze(2)
+        return torch.cat([x, x_max.expand_as(x)], dim=-1)
+
+
 class PillarVFE(nn.Module):
-    bn_statistics = ('pfn_mean', 'pfn_var')
+    """The single-PFN layer of 4-feature points (K1's path) keeps its
+    parameters here, ``pfn_*``; any other config builds ``pfn_layers``,
+    whose BatchNorms hold their own statistics."""
+
+    @property
+    def bn_statistics(self):
+        """The running statistics of the single-PFN path, for precise-BN;
+        absent (AttributeError, so ``hasattr`` is false) on the stack."""
+        if not self.fast:
+            raise AttributeError('bn_statistics')
+        return ('pfn_mean', 'pfn_var')
 
     def __init__(self, model_cfg, num_point_features, voxel_size,
                  point_cloud_range, dtype=None, generator=None):
         super().__init__()
         num_filters = list(model_cfg['NUM_FILTERS'])
-        if not (len(num_filters) == 1 and model_cfg.get('USE_NORM', True)
-                and model_cfg.get('USE_ABSLOTE_XYZ', True)  # sic, reference key
-                and not model_cfg.get('WITH_DISTANCE', False)
-                and num_point_features == 4):
-            raise NotImplementedError(
-                'only the single-PFN PillarVFE (USE_NORM, absolute xyz, no '
-                'distance, 4 point features) is ported: the multi-PFN stack '
-                'is in ROADMAP.md queue 1, "Variants"')
-        c = num_filters[0]
+        self.use_abs_xyz = model_cfg.get('USE_ABSLOTE_XYZ', True)  # sic
+        self.with_distance = model_cfg.get('WITH_DISTANCE', False)
         self.voxel_size = tuple(voxel_size)
         self.point_cloud_range = tuple(point_cloud_range)
         self.dtype = dtype
+        self.fast = (len(num_filters) == 1 and model_cfg.get('USE_NORM', True)
+                     and self.use_abs_xyz and not self.with_distance
+                     and num_point_features == 4)
+        if not self.fast:
+            c_in = num_point_features + 6 - (0 if self.use_abs_xyz else 3) \
+                + int(self.with_distance)
+            layers = []
+            for i, nf in enumerate(num_filters):
+                last = i == len(num_filters) - 1
+                layers.append(PFNLayer(c_in, nf, model_cfg.get('USE_NORM', True),
+                                       last, dtype=dtype, generator=generator))
+                c_in = nf
+            self.pfn_layers = nn.ModuleList(layers)
+            return
+        c = num_filters[0]
         # rows of pfn_kernel: [xyz (3), intensity (1), cluster (3), center (3)]
         self.pfn_kernel = nn.Parameter(torch.empty(10, c))
         lecun_normal_(self.pfn_kernel, 10, generator)
@@ -80,6 +133,11 @@ class PillarVFE(nn.Module):
             coords[..., 0].to(voxels.dtype) * vz + (vz / 2 + off[2]),
         ], dim=-1)  # (B, V, 3)
 
+        if not self.fast:
+            features = self._pfn_stack(voxels, npts, pillar_valid,
+                                       points_mean, centers)
+            features = features * pillar_valid[..., None].to(features.dtype)
+            return {**batch, 'pillar_features': features}
         if self.training:
             features = self._train_features(voxels, npts, pillar_valid,
                                             points_mean, centers, cdt)
@@ -131,3 +189,21 @@ class PillarVFE(nn.Module):
         shift = self.pfn_bn_bias - mean * inv
         x = z * inv.to(z.dtype) + shift.to(z.dtype)
         return torch.relu(x).amax(dim=2)
+
+    def _pfn_stack(self, voxels, npts, pillar_valid, points_mean, centers):
+        """The general path: [point features (absolute xyz or not), cluster
+        offset, centre offset, (distance)], padding points and pillars
+        zeroed, through the PFN layers."""
+        p = voxels.shape[2]
+        xyz = voxels[..., :3]
+        feats = [voxels if self.use_abs_xyz else voxels[..., 3:],
+                 xyz - points_mean[:, :, None], xyz - centers[:, :, None]]
+        if self.with_distance:
+            feats.append(torch.linalg.vector_norm(xyz, dim=-1, keepdim=True))
+        features = torch.cat(feats, dim=-1)
+        point_mask = (torch.arange(p, device=voxels.device) < npts[..., None]) \
+            & pillar_valid[..., None]
+        features = features * point_mask[..., None].to(features.dtype)
+        for layer in self.pfn_layers:
+            features = layer(features, pillar_valid)
+        return features

@@ -26,7 +26,9 @@ from torch import nn
 
 from ...core import losses
 from ...core.box_coders import build_box_coder
-from ...core.geometry import limit_period
+from ...core.geometry import (
+    boxes_to_corners_3d, limit_period, rotate_points_along_z,
+)
 from ..layers import lecun_normal_
 from . import target_assigner
 from .anchor_generator import flatten_anchors, generate_anchors
@@ -171,10 +173,11 @@ class AnchorHeadSingle(nn.Module):
         if self.use_dir:
             fwd['dir_cls_preds'] = fused5[..., nc + code:].reshape(
                 bsz, h, w, na * nd).float()
+        gt_enlarged = None
         if self.model_cfg.get('USE_MULTIFRAME_ENLARGED_GT_BOXES', False):
-            raise NotImplementedError(
-                'USE_MULTIFRAME_ENLARGED_GT_BOXES is not ported yet: see '
-                'ROADMAP.md queue 1, "Variants"')
+            gt_enlarged = compute_multiframe_enlarged_gt(
+                batch['gt_boxes'], batch['locations'], batch['rotations_y'])
+            fwd['gt_boxes_enlarged'] = gt_enlarged
         ta_cfg = self.model_cfg['TARGET_ASSIGNER_CONFIG']
         match_height = ta_cfg.get('MATCH_HEIGHT', False)
         if ta_cfg['NAME'] == 'ATSS':
@@ -185,7 +188,7 @@ class AnchorHeadSingle(nn.Module):
             fwd.update(target_assigner.assign_targets(
                 self.flat_anchors, self.anchor_class, self.matched_t,
                 self.unmatched_t, batch['gt_boxes'], self.box_coder,
-                match_height=match_height))
+                match_height=match_height, gt_boxes_enlarged=gt_enlarged))
         return fwd
 
     def loss(self, fwd):
@@ -208,7 +211,11 @@ class AnchorHeadSingle(nn.Module):
                          rows[..., nc:nc + code], dir_raw, self.flat_anchors[None]),
                      'cls_preds_normalized': False}
         if self.training:
-            return {**batch, 'anchor_head_fwd': self._train_forward(batch, fused)}
+            fwd = self._train_forward(batch, fused)
+            out = {**batch, 'anchor_head_fwd': fwd}
+            if 'gt_boxes_enlarged' in fwd:  # the RoI targets match to them
+                out['gt_boxes_enlarged'] = fwd['gt_boxes_enlarged']
+            return out
         if self.predict_boxes_when_training:
             return batch
         return {
@@ -221,6 +228,28 @@ class AnchorHeadSingle(nn.Module):
             'decode_box_fn': self.decode_boxes,
             'cls_preds_normalized': False,
         }
+
+
+def compute_multiframe_enlarged_gt(gt_boxes, locations, rotations_y):
+    """The BEV extent of each gt box swept over its frame poses
+    (anchor_head.py:259-286): its corners at every frame's location and
+    heading, in the current box's frame; dx and dy become the swept
+    extents. gt_boxes (B, G, 8+), locations (B, G, T, 3), rotations_y
+    (B, G, T) -> (B, G, 8+)."""
+    b, g, t, _ = locations.shape
+    d = gt_boxes.shape[-1]
+    flat = gt_boxes.reshape(b * g, d)
+    loc = locations.reshape(b * g, t, 3)
+    rot = rotations_y.reshape(b * g, t)
+    corners = torch.cat([
+        boxes_to_corners_3d(torch.cat([loc[:, i], flat[:, 3:6],
+                                       rot[:, i:i + 1]], dim=-1))
+        for i in range(t)], dim=1)  # (BG, 8T, 3)
+    local = rotate_points_along_z(corners - flat[:, None, 0:3], -flat[:, 6])
+    length = local[:, :, 0].amax(1) - local[:, :, 0].amin(1)
+    width = local[:, :, 1].amax(1) - local[:, :, 1].amin(1)
+    return torch.cat([flat[:, :3], length[:, None], width[:, None], flat[:, 5:]],
+                     dim=-1).reshape(b, g, d)
 
 
 def add_sin_difference(boxes1, boxes2, dim=6):

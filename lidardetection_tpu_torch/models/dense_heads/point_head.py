@@ -1,5 +1,6 @@
 """The point heads (lidardetection_tpu/models/dense_heads/point_head.py):
-``FCLayers``, ``PointHeadSimple`` (PV-RCNN's keypoint foreground head),
+``FCLayers``, ``PointHeadSimple`` (PV-RCNN's keypoint foreground head)
+and its multiframe counterpart ``PointHeadSimpleMultiFrame``,
 ``PointHeadBox`` (PointRCNN's first stage: foreground and a box a point)
 and ``PointIntraPartOffsetHead`` (Part-A²'s foreground and intra-object
 part offsets, and a box a point when its TARGET_CONFIG names a coder),
@@ -184,6 +185,63 @@ class PointHeadSimple(nn.Module):
                                    fwd['point_cls_labels'], self.num_class,
                                    w['point_cls_weight'])
         return loss, {'point_loss_cls': loss, 'point_pos_num': pos}
+
+
+class PointHeadSimpleMultiFrame(nn.Module):
+    """The multiframe keypoint head (point_head.py:321-383): one score a
+    class and stacked frame, ``point_cls_scores`` their largest sigmoid.
+    Training labels the points once per frame, against the gt boxes moved
+    to that frame's pose (the batch's ``locations`` and
+    ``rotations_y``), and `loss` is one focal loss over all frames'
+    columns with one normaliser, the foreground count over every frame."""
+
+    def __init__(self, model_cfg, num_class, input_channels, stack_frame_size,
+                 dtype=None, generator=None):
+        super().__init__()
+        self.model_cfg, self.num_class = model_cfg, num_class
+        self.stack_frame_size = stack_frame_size
+        self.fc_layers = FCLayers(input_channels, model_cfg['CLS_FC'],
+                                  num_class * stack_frame_size, dtype=dtype,
+                                  generator=generator)
+
+    def forward(self, batch):
+        key = 'point_features_before_fusion' \
+            if self.model_cfg.get('USE_POINT_FEATURES_BEFORE_FUSION', False) \
+            else 'point_features'
+        valid = batch['point_valid']
+        preds = self.fc_layers(batch[key], valid)
+        out = {**batch, 'point_cls_scores': torch.sigmoid(preds).amax(-1)}
+        if self.training:
+            gt = batch['gt_boxes']
+            labels = []
+            for i in range(self.stack_frame_size):
+                gt_i = torch.cat([batch['locations'][:, :, i], gt[..., 3:6],
+                                  batch['rotations_y'][:, :, i, None],
+                                  gt[..., 7:]], dim=-1)
+                labels.append(assign_point_targets(
+                    batch['point_coords'], valid, gt_i,
+                    self.model_cfg['TARGET_CONFIG']['GT_EXTRA_WIDTH'],
+                    self.num_class)['point_cls_labels'])
+            out['point_head_fwd'] = {'point_cls_preds': preds,
+                                     'point_cls_labels_list': tuple(labels)}
+        return out
+
+    def loss(self, fwd):
+        w = self.model_cfg['LOSS_CONFIG']['LOSS_WEIGHTS']
+        labels = torch.stack([l.reshape(-1) for l in fwd['point_cls_labels_list']],
+                             dim=-1)  # (B*N, T)
+        preds = fwd['point_cls_preds'].reshape(
+            -1, self.num_class * self.stack_frame_size)
+        positives = labels > 0
+        pos_norm = positives.sum().float().clamp(min=1.0)
+        cls_weights = (((labels == 0) | positives).float() / pos_norm).sum(-1)
+        one_hot = torch.cat([
+            torch.nn.functional.one_hot(l.clamp(min=0), self.num_class + 1)
+            [..., 1:] for l in labels.unbind(-1)], dim=-1).to(preds.dtype)
+        loss = losses.sigmoid_focal_loss(preds[None], one_hot[None],
+                                         cls_weights[None]).sum()
+        loss = loss * w['point_cls_weight']
+        return loss, {'point_loss_cls': loss, 'point_pos_num': pos_norm}
 
 
 def decoded_point_boxes(out, cls_preds, box_preds, box_coder, valid):

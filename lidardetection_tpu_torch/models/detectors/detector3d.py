@@ -6,11 +6,14 @@ one; PV-RCNN has all three point-based slots (``pfe`` runs after the dense
 head, whose BEV map and sparse stages it reads); Part-A² has the UNet and
 the two heads that read its voxel-centre features; PointRCNN has only a
 point backbone (PointNet2MSG over the raw points) and the two heads.
+The variants take the same slots: the multi-head dense head
+(AnchorHeadMulti, NuScenes CBGS and second_multihead.yaml), the
+multiframe point head (PointHeadSimpleMultiFrame), VoxelResBackBone8x and
+the PFN stack of PillarVFE.
 
 In train mode the forward assigns each head's targets and
 `Detector3D.loss` sums the dense head's, the point head's and the RoI
-head's losses. Every other slot or module raises NotImplementedError
-naming the ROADMAP.md item that will port it.
+head's losses. A module name that no slot takes raises KeyError.
 """
 
 import torch
@@ -24,37 +27,31 @@ from ..backbones_3d.spconv_backbone import VoxelBackBone8x
 from ..backbones_3d.spconv_unet import UNetV2
 from ..backbones_3d.vfe import MeanVFE, PillarVFE
 from ..dense_heads.anchor_head import AnchorHeadSingle
+from ..dense_heads.anchor_head_multi import AnchorHeadMulti
 from ..dense_heads.point_head import (
-    PointHeadBox, PointHeadSimple, PointIntraPartOffsetHead,
+    PointHeadBox, PointHeadSimple, PointHeadSimpleMultiFrame,
+    PointIntraPartOffsetHead,
 )
 from ..roi_heads.parta2_head import PartA2FCHead
 from ..roi_heads.pointrcnn_head import PointRCNNHead
 from ..roi_heads.pvrcnn_head import PVRCNNHead
 
-NOT_PORTED = {  # detector or module name -> ROADMAP.md queue 1 item
-    'AnchorHeadMulti': 'Variants', 'PointHeadSimpleMultiFrame': 'Variants',
-}
-# the modules each slot takes in the port
-PORTED_SLOTS = {
+# the modules each slot takes, as in the JAX package
+SLOT_MODULES = {
     'VFE': ('MeanVFE', 'PillarVFE'),
     'BACKBONE_3D': ('VoxelBackBone8x', 'VoxelResBackBone8x', 'UNetV2',
                     'PointNet2MSG'),
     'MAP_TO_BEV': ('PointPillarScatter', 'HeightCompression'),
-    'BACKBONE_2D': ('BaseBEVBackbone',), 'DENSE_HEAD': ('AnchorHeadSingle',),
+    'BACKBONE_2D': ('BaseBEVBackbone',),
+    'DENSE_HEAD': ('AnchorHeadSingle', 'AnchorHeadMulti'),
     'PFE': ('VoxelSetAbstraction',),
     'POINT_HEAD': ('PointHeadSimple', 'PointIntraPartOffsetHead',
-                   'PointHeadBox'),
+                   'PointHeadBox', 'PointHeadSimpleMultiFrame'),
     'ROI_HEAD': ('PVRCNNHead', 'PartA2FCHead', 'PointRCNNHead'),
 }
 # the slots in the JAX package's module_order
 MODULE_ORDER = ('vfe', 'backbone_3d', 'map_to_bev', 'backbone_2d',
                 'dense_head', 'pfe', 'point_head', 'roi_head')
-
-
-def not_ported(name):
-    item = NOT_PORTED.get(name, 'Variants')
-    return NotImplementedError(
-        f'{name} is not ported yet: see ROADMAP.md queue 1, "{item}"')
 
 
 class Detector3D(nn.Module):
@@ -69,10 +66,13 @@ class Detector3D(nn.Module):
         op_knobs: ``ops.pointnet2.PointOpKnobs`` of the point ops (None =
             exact; they engage on the card only).
         generator: torch.Generator for parameter initialization.
+        class_names: the config's CLASS_NAMES, which the multi-head dense
+            head's head groups name (default: the anchor generator's
+            classes, in their order).
     """
 
     def __init__(self, model_cfg, num_class, dataset_info, op_knobs=None,
-                 generator=None):
+                 generator=None, class_names=None):
         super().__init__()
         dtype_name = model_cfg.get('COMPUTE_DTYPE', 'float32')
         dtype = None if dtype_name in (None, 'float32') \
@@ -83,9 +83,10 @@ class Detector3D(nn.Module):
         pc_range = tuple(dataset_info['point_cloud_range'])
         kw = {'dtype': dtype, 'generator': generator}
 
-        for slot, names in PORTED_SLOTS.items():
+        for slot, names in SLOT_MODULES.items():
             if model_cfg.get(slot) and model_cfg[slot]['NAME'] not in names:
-                raise not_ported(model_cfg[slot]['NAME'])
+                raise KeyError(f'unknown {slot} module '
+                               f'{model_cfg[slot]["NAME"]}')
         for name in MODULE_ORDER:
             setattr(self, name, None)
         num_point_features = dataset_info['num_point_features']
@@ -126,12 +127,18 @@ class Detector3D(nn.Module):
 
         if model_cfg.get('DENSE_HEAD'):
             cfg = model_cfg['DENSE_HEAD']
-            self.dense_head = AnchorHeadSingle(
-                cfg, bev_channels,
+            head_kw = dict(
                 num_class=1 if cfg.get('CLASS_AGNOSTIC', False) else num_class,
                 grid_size=grid_size, point_cloud_range=pc_range,
                 predict_boxes_when_training=bool(model_cfg.get('ROI_HEAD')),
                 **kw)
+            if cfg['NAME'] == 'AnchorHeadMulti':
+                names = tuple(class_names or [
+                    c['class_name'] for c in cfg['ANCHOR_GENERATOR_CONFIG']])
+                self.dense_head = AnchorHeadMulti(
+                    cfg, bev_channels, class_names=names, **head_kw)
+            else:
+                self.dense_head = AnchorHeadSingle(cfg, bev_channels, **head_kw)
 
         if model_cfg.get('PFE'):
             if not hasattr(self.backbone_3d, 'backbone_channels'):
@@ -157,10 +164,14 @@ class Detector3D(nn.Module):
                     cfg, nc, point_channels,
                     predict_boxes_when_training=boxes_for_roi, **kw)
             else:
-                self.point_head = PointHeadSimple(
-                    cfg, nc, self.pfe.num_point_features_before_fusion
-                    if cfg.get('USE_POINT_FEATURES_BEFORE_FUSION', False)
-                    else point_channels, **kw)
+                c_in = self.pfe.num_point_features_before_fusion \
+                    if cfg.get('USE_POINT_FEATURES_BEFORE_FUSION', False) \
+                    else point_channels
+                if cfg['NAME'] == 'PointHeadSimpleMultiFrame':
+                    self.point_head = PointHeadSimpleMultiFrame(
+                        cfg, nc, c_in, int(model_cfg['STACK_FRAME_SIZE']), **kw)
+                else:
+                    self.point_head = PointHeadSimple(cfg, nc, c_in, **kw)
 
         if model_cfg.get('ROI_HEAD'):
             cfg = model_cfg['ROI_HEAD']

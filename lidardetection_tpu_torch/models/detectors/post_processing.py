@@ -10,16 +10,20 @@ logit space. Its ``approx_max_k`` over pixels (batch > 1) is an exact
 top-k here. A two-stage head (PV-RCNN) hands decoded boxes: the sigmoid
 probabilities are thresholded and NMS'd, labelled by ``roi_labels``.
 Outputs are padded to NMS_POST_MAXSIZE with a mask and a count, as in the
-JAX package. ``compute_recall`` counts the gt boxes that the kept boxes
-(and the RoIs) cover, for the evaluator.
+JAX package. With ``MULTI_CLASSES_NMS`` (the multi-head detectors) every
+class of every head runs its own NMS (``_multi_class_post_processing``):
+the outputs hold each head's classes x NMS_POST_MAXSIZE slots, the kept
+rows marked by ``pred_mask`` with gaps between them, so a reader selects
+by the mask, not by the count. ``NMS_TYPE`` other than ``nms_gpu`` walks
+the axis-aligned IoU. ``compute_recall`` counts the gt boxes that the kept
+boxes (and the RoIs) cover, for the evaluator.
 """
 
 import numpy as np
 import torch
 
-from ...core.iou3d import boxes_iou3d, nms_bev_batched, top_k
-
-VARIANTS_NOT_PORTED = 'see ROADMAP.md queue 1, "Variants"'
+from ...core.iou3d import boxes_iou3d, top_k
+from ..model_utils.nms_utils import class_agnostic_nms, multi_classes_nms
 
 
 def post_processing(batch, post_cfg, num_class):
@@ -36,11 +40,7 @@ def post_processing(batch, post_cfg, num_class):
     """
     nms_cfg = post_cfg['NMS_CONFIG']
     if nms_cfg.get('MULTI_CLASSES_NMS', False):
-        raise NotImplementedError(f'multi-class NMS is not ported yet: '
-                                  f'{VARIANTS_NOT_PORTED}')
-    if nms_cfg['NMS_TYPE'] != 'nms_gpu':
-        raise NotImplementedError(f'NMS_TYPE {nms_cfg["NMS_TYPE"]} is not '
-                                  f'ported yet: {VARIANTS_NOT_PORTED}')
+        return _multi_class_post_processing(batch, post_cfg, num_class)
     score_thresh = post_cfg.get('SCORE_THRESH', None)
     normalized = batch.get('cls_preds_normalized', False)
     if 'decode_box_fn' not in batch:
@@ -99,12 +99,9 @@ def post_processing(batch, post_cfg, num_class):
     live = torch.isfinite(top_s)
     scores = torch.where(live, scores, torch.zeros_like(scores))
 
-    post = int(nms_cfg['NMS_POST_MAXSIZE'])
     # candidates come out of a top-k, so they already descend by score
-    idx, mask, num, _ = nms_bev_batched(
-        box_preds[..., 0:7], scores, thresh=nms_cfg['NMS_THRESH'],
-        pre_maxsize=int(nms_cfg['NMS_PRE_MAXSIZE']), post_maxsize=post,
-        valid_mask=live, assume_sorted=True)
+    idx, mask, num, _ = class_agnostic_nms(scores, box_preds, nms_cfg,
+                                           valid_mask=live, assume_sorted=True)
 
     return _kept(box_preds, scores, labels, idx, mask, num, live)
 
@@ -119,11 +116,53 @@ def _decoded_post_processing(batch, nms_cfg, score_thresh, normalized):
     labels = batch['roi_labels'].long()
     if score_thresh is not None:
         valid = valid & (scores >= score_thresh)
-    idx, mask, num, _ = nms_bev_batched(
-        box_preds[..., 0:7], scores, thresh=nms_cfg['NMS_THRESH'],
-        pre_maxsize=int(nms_cfg['NMS_PRE_MAXSIZE']),
-        post_maxsize=int(nms_cfg['NMS_POST_MAXSIZE']), valid_mask=valid)
+    idx, mask, num, _ = class_agnostic_nms(scores, box_preds, nms_cfg,
+                                           valid_mask=valid)
     return _kept(box_preds, scores, labels, idx, mask, num, valid)
+
+
+def _multi_class_post_processing(batch, post_cfg, num_class):
+    """Per-class NMS (post_processing.py:211-251 of the JAX package):
+    ``batch_cls_preds`` is a list of each head's (B, N_h, nc_h) logits with
+    ``multihead_label_mapping``, each head's global class ids (1-based),
+    or one (B, N, num_class) tensor; ``batch_box_preds`` (B, sum N_h, 7+)
+    holds the heads' rows in order. Each head's (sample, class) pairs go
+    through one NMS walk. ``num_candidates`` counts the (anchor, class)
+    scores that pass SCORE_THRESH; ``rows_read``, (B, sum nc_h) numpy, the
+    IoU rows each class's walk read."""
+    nms_cfg = post_cfg['NMS_CONFIG']
+    score_thresh = post_cfg.get('SCORE_THRESH', None)
+    box_preds = batch['batch_box_preds']
+    cls_preds = batch['batch_cls_preds']
+    if isinstance(cls_preds, (list, tuple)):
+        mappings = batch['multihead_label_mapping']
+    else:
+        cls_preds = [cls_preds]
+        mappings = [tuple(range(1, num_class + 1))]
+    normalized = batch.get('cls_preds_normalized', False)
+    thr = -float('inf') if score_thresh is None else score_thresh
+    parts = {k: [] for k in ('pred_scores', 'pred_labels', 'pred_boxes',
+                             'pred_mask')}
+    rows_read, live = [], 0
+    start = 0
+    for head_cls, mapping in zip(cls_preds, mappings):
+        n = head_cls.shape[1]
+        probs = head_cls.float() if normalized else torch.sigmoid(head_cls.float())
+        scores, labels, boxes, mask, read = multi_classes_nms(
+            probs, box_preds[:, start:start + n], nms_cfg, score_thresh)
+        global_labels = torch.tensor(mapping, device=labels.device)[labels]
+        parts['pred_scores'].append(scores)
+        parts['pred_labels'].append(torch.where(mask, global_labels, 0))
+        parts['pred_boxes'].append(boxes)
+        parts['pred_mask'].append(mask)
+        rows_read.append(read)
+        live = live + (probs >= thr).sum((1, 2))
+        start += n
+    out = {k: torch.cat(v, dim=1) for k, v in parts.items()}
+    out['num_preds'] = out['pred_mask'].sum(1)
+    out['num_candidates'] = live
+    out['rows_read'] = np.concatenate(rows_read, axis=1)
+    return out
 
 
 def _kept(box_preds, scores, labels, idx, mask, num, live):

@@ -98,9 +98,6 @@ class PartA2FCHead(nn.Module):
 
     def forward(self, batch, draw=None):
         cfg = self.model_cfg
-        if cfg.get('DISABLE_PART', False):
-            from ..detectors.detector3d import not_ported
-            raise not_ported('DISABLE_PART')
         if self.training and draw is None:
             raise ValueError('a training forward of the RoI head needs '
                              '`draw`, its source of uniforms')
@@ -121,12 +118,15 @@ class PartA2FCHead(nn.Module):
         b, r = rois.shape[:2]
         ps = self.pool_size
 
-        # the part features: the part offsets where the (detached) score
-        # passes SEG_MASK_SCORE_THRESH, else 0, and the score
+        # the part features: the part offsets (the raw point coordinates
+        # with DISABLE_PART, the anchor-free variant) where the (detached)
+        # score passes SEG_MASK_SCORE_THRESH, else 0, and the score
         coords = batch['point_coords']
         scores = out['point_cls_scores'].detach()
         keep = scores >= cfg['SEG_MASK_SCORE_THRESH']
-        part = out['point_part_offset'] * keep[..., None]
+        part = coords if cfg.get('DISABLE_PART', False) \
+            else out['point_part_offset']
+        part = part * keep[..., None]
         part_features = torch.cat([part, scores[..., None]], dim=-1)
         num = batch['point_valid'].sum(1)
 

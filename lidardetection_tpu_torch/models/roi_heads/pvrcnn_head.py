@@ -140,7 +140,8 @@ class PVRCNNHead(nn.Module):
             bn.append(MaskedBatchNorm(width, axis=-1, **POINT_BN))
             c = width
         self.dense, self.bn = nn.ModuleList(dense), nn.ModuleList(bn)
-        reg_tracking = bool(tc.get('REG_TRACKING_INFO', False))
+        reg_tracking = self.reg_tracking = bool(
+            tc.get('REG_TRACKING_INFO', False))
         self.fc_heads = nn.ModuleList([
             FCLayers(c, model_cfg['CLS_FC'], num_class, dtype=dtype,
                      generator=generator),
@@ -187,7 +188,8 @@ class PVRCNNHead(nn.Module):
                 x = dropout(x, draw(f'dropout_{i}', x.shape), rate)
         rcnn_cls, rcnn_reg = self.fc_heads[0](x), self.fc_heads[1](x)
         if self.training:
-            fwd.update(rcnn_cls=rcnn_cls, rcnn_reg=rcnn_reg)
+            fwd.update(rcnn_cls=rcnn_cls, rcnn_reg=rcnn_reg,
+                       reg_tracking_info=self.reg_tracking)
             out['roi_head_fwd'] = fwd
             return out
         cls_b, box_b = roi_head_utils.generate_rcnn_boxes(

@@ -154,13 +154,20 @@ def max_iou_with_gt(rois, roi_labels, gt_boxes, by_class):
 
 
 def sample_rois_for_rcnn(draws, rois, roi_scores, roi_labels, roi_valid,
-                         gt_boxes, sampler_cfg):
+                         gt_boxes, sampler_cfg, gt_boxes_enlarged=None,
+                         gt_tracking=None):
     """Match the proposals to the gt and sample ROI_PER_IMAGE of them
-    (roi_head_utils.py:138-177). Returns a dict of (B, R, ...) tensors,
-    with ``sampled_inds``, the proposals' indices."""
+    (roi_head_utils.py:138-177). `gt_boxes_enlarged` (the multiframe swept
+    boxes), when given, is what the proposals are matched to; the targets
+    come from `gt_boxes`, with `gt_tracking` (B, G, 8) appended to each
+    (REG_TRACKING_INFO). Returns a dict of (B, R, ...) tensors, with
+    ``sampled_inds``, the proposals' indices."""
     max_ov, gt_assign = max_iou_with_gt(
-        rois, roi_labels, gt_boxes,
+        rois, roi_labels,
+        gt_boxes if gt_boxes_enlarged is None else gt_boxes_enlarged,
         sampler_cfg.get('SAMPLE_ROI_BY_EACH_CLASS', False))
+    if gt_tracking is not None:
+        gt_boxes = torch.cat([gt_boxes, gt_tracking], dim=-1)
     sampled = subsample_rois(draws, max_ov, roi_valid, sampler_cfg)
 
     def take(x, idx):
@@ -182,13 +189,25 @@ def assign_roi_targets(draws, batch, sampler_cfg):
     regression mask, the class targets of CLS_SCORE_TYPE and the gt boxes
     in each RoI's canonical frame (centre at the origin, heading relative
     to the RoI's, flipped into [-pi/2, pi/2]); ``gt_of_rois_src`` keeps
-    them in the world frame for the corner loss."""
+    them in the world frame for the corner loss.
+
+    With REG_TRACKING_INFO (multiframe) each gt box carries its tracking
+    targets after its class (roi_head_utils.py:183-197): the displacement
+    from frame 0 to 1 and from 1 to 2 and the headings of frames 0 and 1,
+    from the batch's ``locations`` (B, G, T, 3) and ``rotations_y`` (B, G,
+    T); the proposals are matched to ``gt_boxes_enlarged`` when the dense
+    head made them."""
+    gt_tracking = None
     if sampler_cfg.get('REG_TRACKING_INFO', False):
-        from ..detectors.detector3d import not_ported
-        raise not_ported('REG_TRACKING_INFO')
+        loc, roty = batch['locations'], batch['rotations_y']
+        gt_tracking = torch.cat([loc[:, :, 1] - loc[:, :, 0],
+                                 loc[:, :, 2] - loc[:, :, 1],
+                                 roty[:, :, 0:2]], dim=-1)
     t = sample_rois_for_rcnn(draws, batch['rois'], batch['roi_scores'],
                              batch['roi_labels'], batch['roi_valid'],
-                             batch['gt_boxes'], sampler_cfg)
+                             batch['gt_boxes'], sampler_cfg,
+                             gt_boxes_enlarged=batch.get('gt_boxes_enlarged'),
+                             gt_tracking=gt_tracking)
     ious = t['gt_iou_of_rois']
     t['reg_valid_mask'] = (ious > sampler_cfg['REG_FG_THRESH']).long()
     if sampler_cfg['CLS_SCORE_TYPE'] == 'cls':
@@ -240,6 +259,11 @@ def roi_box_loss(fwd, box_coder, loss_cfg):
     zeros = torch.zeros_like(rois[:, 0:3])
     rois_anchor = torch.cat([zeros, rois[:, 3:6], zeros[:, :1], rois[:, 7:]], -1)
     reg_targets = box_coder.encode(gt_ct, rois_anchor)
+    if fwd.get('reg_tracking_info', False):
+        # gt_of_rois: the box (code), its class, the tracking targets (8)
+        track = fwd['gt_of_rois'][..., code + 1:]
+        reg_targets = torch.cat(
+            [reg_targets, track.reshape(reg_targets.shape[0], -1)], -1)
     loss_reg = losses.weighted_smooth_l1_loss(
         rcnn_reg[None, :, 0:reg_targets.shape[-1]], reg_targets[None],
         code_weights=w['code_weights'])

@@ -1,5 +1,5 @@
-"""Serving (PointPillar, SECOND, PV-RCNN, Part-A² and PointRCNN): the
-port's entry point.
+"""Serving (PointPillar, SECOND, PV-RCNN, Part-A², PointRCNN and their
+variants, every model config under tools/cfgs/): the port's entry point.
 
 ``Detector(cfg_file, device="cuda", seed=0, state_dict=None)`` builds the
 detector of a YAML config (or of a loaded config) on the card; parameters
@@ -28,6 +28,9 @@ CLI, answering requests on synthetic scenes made from ``--seed``:
         --cfg_file tools/cfgs/kitti_models/PartA2.yaml --num_requests 8
     python -m lidardetection_tpu_torch.serve \\
         --cfg_file tools/cfgs/kitti_models/pointrcnn.yaml --num_requests 8
+    python -m lidardetection_tpu_torch.serve \\
+        --cfg_file tools/cfgs/nuscenes_models/cbgs_second_multihead.yaml \\
+        --num_requests 8
 """
 
 import argparse
@@ -61,7 +64,8 @@ class Detector:
         self.rng = np.random.RandomState(seed)  # a point config's samples
         self.num_class = len(self.cfg['CLASS_NAMES'])
         self.model = build_network(self.cfg['MODEL'], self.num_class,
-                                   self.info, seed=seed)
+                                   self.info, seed=seed,
+                                   class_names=self.cfg['CLASS_NAMES'])
         self.max_points = raw_point_capacity(self.cfg)
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
@@ -96,17 +100,29 @@ class Detector:
                                self.num_class)
 
     def predict(self, points_list):
-        """One request per (N, 4) cloud; returns numpy detections."""
+        """One request per (N, C) cloud (C the config's point features);
+        returns numpy detections, the kept rows of each (``pred_mask``)."""
         results = []
         for points in points_list:
             preds = self.postprocess(self.forward(self.make_batch([points])))
-            n = int(preds['num_preds'][0])
+            kept = preds['pred_mask'][0]
             results.append({
-                'boxes': preds['pred_boxes'][0, :n].cpu().numpy(),
-                'scores': preds['pred_scores'][0, :n].cpu().numpy(),
-                'labels': preds['pred_labels'][0, :n].cpu().numpy(),
+                'boxes': preds['pred_boxes'][0, kept].cpu().numpy(),
+                'scores': preds['pred_scores'][0, kept].cpu().numpy(),
+                'labels': preds['pred_labels'][0, kept].cpu().numpy(),
             })
         return results
+
+    def scene(self, rng):
+        """One synthetic request cloud at the config's point width."""
+        points, _, _ = make_scene(
+            rng, np.asarray(self.info['point_cloud_range'], np.float32),
+            class_names=tuple(self.cfg['CLASS_NAMES']))
+        extra = self.info['num_point_features'] - points.shape[1]
+        if extra <= 0:
+            return points
+        return np.concatenate(
+            [points, np.zeros((len(points), extra), np.float32)], axis=1)
 
 
 def main(argv=None):
@@ -119,10 +135,8 @@ def main(argv=None):
 
     detector = Detector(args.cfg_file, device=args.device, seed=args.seed)
     rng = np.random.RandomState(args.seed)
-    pc_range = np.asarray(detector.info['point_cloud_range'], np.float32)
     for i in range(args.num_requests):
-        points, _, _ = make_scene(
-            rng, pc_range, class_names=tuple(detector.cfg['CLASS_NAMES']))
+        points = detector.scene(rng)
         t0 = time.perf_counter()
         result = detector.predict([points])[0]
         ms = (time.perf_counter() - t0) * 1e3

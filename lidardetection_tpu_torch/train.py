@@ -1,5 +1,6 @@
-"""Training (PointPillar, SECOND, PV-RCNN, Part-A² and PointRCNN): the
-port's entry point, the counterpart of tools/train.py -> engine/trainer.py ->
+"""Training (PointPillar, SECOND, PV-RCNN, Part-A², PointRCNN and their
+variants, every model config under tools/cfgs/): the port's entry point,
+the counterpart of tools/train.py -> engine/trainer.py ->
 parallel/train_step.py.
 
 ``Trainer(cfg_file, device="cuda", seed=0, state_dict=None, total_steps=...)``
@@ -32,6 +33,9 @@ CLI, training on synthetic scenes made from ``--seed``:
         --cfg_file tools/cfgs/kitti_models/PartA2.yaml --num_steps 4
     python -m lidardetection_tpu_torch.train \
         --cfg_file tools/cfgs/kitti_models/pointrcnn.yaml --num_steps 4
+    python -m lidardetection_tpu_torch.train \\
+        --cfg_file tools/cfgs/nuscenes_models/cbgs_second_multihead.yaml \\
+        --num_steps 4
 """
 
 import argparse
@@ -44,7 +48,9 @@ import torch
 from .config import (
     cfg_from_yaml_file, dataset_info, raw_point_capacity, voxel_processor_cfg,
 )
-from .datasets.synthetic import SyntheticDataset, SyntheticLoader
+from .datasets.synthetic import (
+    SyntheticDataset, SyntheticLoader, scene_options,
+)
 from .engine.trainer import train_model
 from .models import build_network
 from .ops.sparse_plan import config_plan
@@ -81,7 +87,8 @@ class Trainer:
         self.seed = seed
         self.rng = np.random.RandomState(seed)
         self.model = build_network(self.cfg['MODEL'], len(self.class_names),
-                                   self.info, seed=seed)
+                                   self.info, seed=seed,
+                                   class_names=self.class_names)
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         self.model.to(device).train()
@@ -97,29 +104,41 @@ class Trainer:
         self._step = make_train_step(self.state)
 
     def make_batch(self, scenes):
-        """Voxelize ``(points, gt_boxes (G, 8))`` scenes on the host, with
-        the raw points padded to MAX_POINTS when the model reads them and
-        the training plan's ``rb_*`` tables for a sparse 3D backbone (a
-        point config's clouds masked, sampled, shuffled and padded); the
-        batch tensors on the device."""
+        """Voxelize ``(points, gt_boxes (G, D + 1))`` scenes on the host,
+        with the raw points padded to MAX_POINTS when the model reads them
+        and the training plan's ``rb_*`` tables for a sparse 3D backbone (a
+        point config's clouds masked, sampled, shuffled and padded); a
+        multiframe scene's third entry, its frame poses (``locations``,
+        ``rotations_y``), is stacked beside. The batch tensors on the
+        device."""
+        clouds = [scene[0] for scene in scenes]
         if self.vox is None:
             arrays = build_point_batch(
-                [points for points, _ in scenes],
-                self.cfg['DATA_CONFIG']['DATA_PROCESSOR'],
+                clouds, self.cfg['DATA_CONFIG']['DATA_PROCESSOR'],
                 self.info['point_cloud_range'], self.max_points,
                 training=True, rng=self.rng)
         else:
-            clouds = []
-            for points, _ in scenes:
-                if self.shuffle_points:
-                    points = points[self.rng.permutation(len(points))]
-                clouds.append(points)
+            if self.shuffle_points:
+                clouds = [points[self.rng.permutation(len(points))]
+                          for points in clouds]
             arrays = build_batch(clouds, self.info['point_cloud_range'],
                                  self.info['voxel_size'],
                                  self.max_points_per_voxel, self.max_voxels,
                                  max_points=self.max_points, plan=self.plan)
-        arrays['gt_boxes'] = np.stack([gt for _, gt in scenes])
+        arrays['gt_boxes'] = np.stack([scene[1] for scene in scenes])
+        if len(scenes[0]) > 2:
+            for key in scenes[0][2]:
+                arrays[key] = np.stack([scene[2][key] for scene in scenes])
         return device_batch(arrays, self.device)
+
+    def dataset(self, num_scenes, seed=0):
+        """The config's synthetic training set (its point width, velocity
+        and frame poses)."""
+        return SyntheticDataset(
+            self.class_names, self.info['point_cloud_range'],
+            num_scenes=num_scenes, seed=seed, max_gt_boxes=self.max_gt_boxes,
+            **scene_options(self.cfg['DATA_CONFIG'],
+                            self.info['num_point_features']))
 
     def step(self, batch):
         """One optimizer step; returns the loss terms as 0-d tensors."""
@@ -156,10 +175,7 @@ def main(argv=None):
                       total_steps=args.num_steps)
     batch_size = args.batch_size or int(
         trainer.cfg['OPTIMIZATION']['BATCH_SIZE_PER_GPU'])
-    dataset = SyntheticDataset(
-        trainer.class_names, trainer.info['point_cloud_range'],
-        num_scenes=args.num_steps * batch_size, seed=args.seed,
-        max_gt_boxes=trainer.max_gt_boxes)
+    dataset = trainer.dataset(args.num_steps * batch_size, seed=args.seed)
     loader = SyntheticLoader(dataset, batch_size, lambda scenes: scenes,
                              seed=args.seed)
     for i, scenes in enumerate(loader):

@@ -39,7 +39,7 @@ import torch
 
 from .config import cfg_from_yaml_file
 from .datasets.synthetic import (
-    SyntheticDataset, SyntheticLoader, build_test_loader,
+    SyntheticLoader, build_test_loader,
 )
 from .engine.bn_recalibrate import recalibrate_bn_stats
 from .engine.evaluator import eval_one_epoch
@@ -148,9 +148,7 @@ def main(argv=None):
 
     trainer = Trainer(cfg, device=args.device, seed=args.seed)
     class_names = list(trainer.class_names)
-    dataset = SyntheticDataset(class_names, trainer.info['point_cloud_range'],
-                               num_scenes=args.scenes, seed=SCENE_SEED,
-                               max_gt_boxes=trainer.max_gt_boxes)
+    dataset = trainer.dataset(args.scenes, seed=SCENE_SEED)
     loader = SyntheticLoader(dataset, args.batch_size, trainer.make_batch,
                              seed=args.seed)
     done = checkpoint_epoch(latest_checkpoint(str(ckpt_dir)))
@@ -164,7 +162,8 @@ def main(argv=None):
     # restore the newest checkpoint into a fresh model, not the one in
     # memory, so the gate also covers saving and restoring
     model = build_network(cfg.MODEL, len(class_names), trainer.info,
-                          seed=args.seed + 1).to(trainer.device)
+                          seed=args.seed + 1,
+                          class_names=class_names).to(trainer.device)
     restore_model(latest_checkpoint(str(ckpt_dir)), model, logger)
     recalibrate_bn_stats(model, loader, lambda batch: batch,
                          n_batches=len(loader), logger=logger)

@@ -129,49 +129,74 @@ def test_sources_name_no_jax_module():
 
 @pytest.mark.parametrize('name', ['TRAIN', 'PVRCNN', 'PARTA2'])
 def test_unported_paths_raise_with_the_roadmap_item(name):
-    from lidardetection_tpu_torch.config import cfg_from_yaml_file
+    """The three paths that raised naming the variants now run: the
+    multiframe enlarged anchor targets (TRAIN), the tracking targets of
+    the PV-RCNN RoI head (PVRCNN, whose training forward still refuses to
+    run without a source of draws) and Part-A²'s RoI head without part
+    features (PARTA2, the anchor-free PartA2_free.yaml)."""
+    from lidardetection_tpu_torch.config import cfg_from_yaml_file, dataset_info
     from lidardetection_tpu_torch.models import build_network
     from lidardetection_tpu_torch.models.dense_heads.anchor_head import (
         AnchorHeadSingle,
     )
 
-    if name == 'PVRCNN':  # serving and training are ported, tracking not
-        from lidardetection_tpu_torch.config import dataset_info
+    gt = torch.zeros(1, 4, 8)
+    gt[0, :2] = torch.tensor([[8.0, 0.0, -1.0, 3.9, 1.6, 1.5, 0.3, 1],
+                              [16.0, 4.0, -1.0, 0.8, 0.6, 1.7, -1.0, 2]])
+    loc = gt[..., None, 0:3].repeat(1, 1, 3, 1)
+    loc[..., 0, 0] -= 2.0  # moved 1 m a frame along x
+    loc[..., 1, 0] -= 1.0
+    roty = gt[..., 6, None].repeat(1, 1, 3)
+    if name == 'PVRCNN':
         from lidardetection_tpu_torch.models.roi_heads import roi_head_utils
         cfg = cfg_from_yaml_file('tools/cfgs/kitti_models/pv_rcnn.yaml')
         model = build_network(cfg.MODEL, 3, dataset_info(cfg.DATA_CONFIG))
         with pytest.raises(ValueError, match='draw'):  # no source of draws
             model.roi_head.train()({'batch_box_preds': torch.zeros(1, 4, 7),
                                     'batch_cls_preds': torch.zeros(1, 4, 3)})
-        tracking = {**cfg.MODEL.ROI_HEAD.TARGET_CONFIG,
+        tracking = {**cfg.MODEL.ROI_HEAD.TARGET_CONFIG, 'ROI_PER_IMAGE': 4,
                     'REG_TRACKING_INFO': True}
-        with pytest.raises(NotImplementedError, match='Variants'):
-            roi_head_utils.assign_roi_targets({}, {}, tracking)
+        rois = gt[..., :7].clone()
+        rois[..., 0] += 0.1
+        draws = {n: torch.rand(1, 4) for n, _ in roi_head_utils.SAMPLE_DRAWS}
+        t = roi_head_utils.assign_roi_targets(draws, {
+            'rois': rois, 'roi_scores': torch.ones(1, 4),
+            'roi_labels': gt[..., -1].int(), 'roi_valid': gt[..., -1] > 0,
+            'gt_boxes': gt, 'locations': loc, 'rotations_y': roty}, tracking)
+        # the box, its class, then the two displacements and two headings
+        assert t['gt_of_rois'].shape == (1, 4, 16)
+        kept = t['gt_of_rois'][0][t['reg_valid_mask'][0] > 0]
+        assert len(kept) > 0
+        assert torch.allclose(kept[:, 8:14], torch.tensor([1.0, 0, 0] * 2))
         return
-    if name == 'PARTA2':  # ported, with the point box branch that its
-        # anchor-free variant (PartA2_free.yaml, NAME PointRCNN) needs; that
-        # variant's RoI head without part features is not
-        from lidardetection_tpu_torch.config import dataset_info
-        cfg = cfg_from_yaml_file('tools/cfgs/kitti_models/PartA2.yaml')
+    if name == 'PARTA2':  # the anchor-free variant's RoI head
+        cfg = cfg_from_yaml_file('tools/cfgs/kitti_models/PartA2_free.yaml')
         cfg.MODEL.ROI_HEAD.ROI_AWARE_POOL.POOL_SIZE = 4  # a small first FC
-        cfg.MODEL.ROI_HEAD.DISABLE_PART = True
-        cfg.MODEL.POINT_HEAD.TARGET_CONFIG.BOX_CODER = 'PointResidualCoder'
-        cfg.MODEL.POINT_HEAD.REG_FC = []
-        cfg.MODEL.NAME = 'PointRCNN'
         model = build_network(cfg.MODEL, 3, dataset_info(cfg.DATA_CONFIG))
+        assert model.roi_head.model_cfg.DISABLE_PART
         assert model.point_head.box_layers is not None
-        with pytest.raises(NotImplementedError, match='Variants'):
-            model.roi_head({'batch_box_preds': torch.zeros(1, 4, 7),
-                            'batch_cls_preds': torch.zeros(1, 4, 3)})
+        coords = torch.rand(1, 500, 3) * torch.tensor([20.0, 10.0, 2.0])
+        out = model.roi_head({
+            'batch_box_preds': torch.cat([gt[..., :7], gt[..., :7]], 1),
+            'batch_cls_preds': torch.randn(1, 8, 3), 'point_coords': coords,
+            'point_valid': torch.ones(1, 500, dtype=torch.bool),
+            'point_cls_scores': torch.rand(1, 500),
+            'point_features': torch.randn(1, 500, 16)})
+        assert torch.isfinite(out['batch_box_preds']).all()
+        assert out['batch_box_preds'].shape[-1] == 7
         return
     cfg = cfg_from_yaml_file('tools/cfgs/kitti_models/pointpillar.yaml')
     head_cfg = cfg.MODEL.DENSE_HEAD
     head_cfg.USE_MULTIFRAME_ENLARGED_GT_BOXES = True
     head = AnchorHeadSingle(head_cfg, 8, 3, (32, 32, 1),
                             (0, -12.8, -3, 25.6, 12.8, 1)).train()
-    with pytest.raises(NotImplementedError, match='Variants'):
-        head({'spatial_features_2d': torch.zeros(1, 16, 16, 8),
-              'gt_boxes': torch.zeros(1, 4, 8)})
+    out = head({'spatial_features_2d': torch.zeros(1, 16, 16, 8),
+                'gt_boxes': gt, 'locations': loc, 'rotations_y': roty})
+    enlarged = out['gt_boxes_enlarged']
+    # the swept box is 2 m longer along its heading's x, as wide or wider
+    assert enlarged[0, 0, 3] > gt[0, 0, 3] + 1.5
+    assert (enlarged[0, :2, 4] >= gt[0, :2, 4] - 1e-6).all()
+    assert (out['anchor_head_fwd']['box_cls_labels'] > 0).any()
 
 
 def test_kernel_wrappers_reject_other_devices():

@@ -4,6 +4,8 @@ held as float32 whatever the process's TF32 and matmul-precision flags are
 box-coder error names the ROADMAP item that ports the coders still
 missing."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -77,11 +79,19 @@ def test_pairwise_d2_is_full_f32_under_medium_precision(flags):
 
 
 def test_box_coder_error_names_the_point_coder_items():
-    """PointRCNN's point coder builds; the variants' decoders still raise,
-    naming their item."""
+    """Every coder of the JAX package's registry builds, the two legacy
+    decoders among them (decode only: the heading of the RoI one is ``ra
+    - rt``); an unknown name raises KeyError, as the JAX package's."""
     assert build_box_coder('PointResidualCoder').code_size == 8
+    anchors = torch.tensor([[1.0, 2.0, 0.5, 4.0, 2.0, 1.5, 0.3]])
+    codes = torch.tensor([[0.0, 0.0, 0.0, 0.1, 0.2, 0.0, 0.25]])
+    headings = []
     for name in ('PreviousResidualDecoder', 'PreviousResidualRoIDecoder'):
-        with pytest.raises(NotImplementedError) as err:
-            build_box_coder(name)
-        assert '"Variants"' in str(err.value)
-        assert 'PV-RCNN' not in str(err.value)
+        boxes = build_box_coder(name).decode(codes, anchors)
+        # size residuals in (w, l, h) order: dx from the second, dy the first
+        assert torch.allclose(boxes[0, 3:5], torch.tensor(
+            [4.0 * math.exp(0.2), 2.0 * math.exp(0.1)]))
+        headings.append(float(boxes[0, 6]))
+    assert headings == pytest.approx([0.55, 0.05])
+    with pytest.raises(KeyError):
+        build_box_coder('NoSuchCoder')
