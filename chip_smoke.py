@@ -181,6 +181,28 @@ The variants, run after PointRCNN's phase of each kind:
    kernels vs plain, and trained (53 K3, 27 K4 a step);
  - second_multihead.yaml through ``eval_one_epoch`` (12 K3, 1 K2 a batch,
    multi-class NMS), the KITTI protocol native vs numpy on its annos.
+The data layer, after precise-BN: a KITTI tree (12 train and 4 val
+frames of an HDL-64E scan, ~129k returns, ~19k in the camera's view and
+range) and a NuScenes tree (4 train and 2 val key frames with 9 sweeps of
+an HDL-32E scan, ~27k returns each) written to a temporary directory,
+``create_kitti_infos`` and the NuScenes gt database timed, all through
+``datasets.build_dataloader`` (min(8, cores) forked workers). PointPillar
+evaluates the val split, bucketed, through the KITTI protocol (1 K1 and 1
+K2 a batch, both held bit for bit against their plain versions on one of
+its batches, the largest ``num_voxels`` against the 40000 cap); the CBGS
+SECOND multi-head trains from the NuScenes tree with CBGS (every kernel
+call of one step on a loader batch held against its plain version; 16
+warm-up and 8 timed steps, 37 K3, 19 K4, 1 K2 each; the step again with
+no worker alive) and evaluates its 2 val frames through
+``_kitti_style_eval`` (19 K3, 1 K2); SECOND trains from the KITTI tree
+(the full augmentor, B = 4, bf16; one f32 step on a loader batch with the
+kernels against the plain versions on the card and the CPU; 16 warm-up
+steps, the batches the workers were sent at the start, then 48 timed with
+23 K3, 12 K4 and 1 K2 checked per step: the wait on the loader, the copy
+and the step apart, a batch's build time in one process). In the
+profiler's section, after K2's launch count, 16 untraced SECOND steps
+take the batches the workers built ahead meanwhile, then 16 traced ones
+fed by the loader give the idle share of training from files.
 The line before the last is the kernels' JSON (K5's entry with PointRCNN's
 two levels under ``pointrcnn``; K3's and K4's at VoxelResBackBone8x's
 shapes under ``cbgs``), preceded by the card's name and power limit; the
@@ -188,10 +210,13 @@ last line is the device JSON.
 """
 
 import contextlib
+import itertools
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -218,6 +243,11 @@ CFG_PARTA2_FREE = 'tools/cfgs/kitti_models/PartA2_free.yaml'
 N_REQUESTS_VARIANTS = 3
 NUSCENES_SWEEPS = 10         # a NuScenes scan: the key frame and 9 sweeps
 NUSCENES_GROUND = 26000      # ring returns a sweep: ~250k points in range
+KITTI_TRAIN, KITTI_VAL = 12, 4      # the data phase's KITTI tree
+NUSCENES_TRAIN, NUSCENES_VAL = 4, 2  # and NuScenes tree's key frames
+LOADER_STEPS = 48      # SECOND steps timed from the loader (after warm-up)
+PROFILED_STEPS = 16    # and then under the profiler
+CBGS_LOADER_STEPS = 8  # CBGS SECOND multi-head steps timed from the loader
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12     # H100 SXM, dense bf16 on the tensor cores
@@ -2130,12 +2160,16 @@ class CountedLoader:
         self.loader, self.per_batch = loader, per_batch
         self.dataset = loader.dataset
         self.total = {k.__name__: 0 for k in per_batch}
+        self.largest_num_voxels = 0
 
     def __len__(self):
         return len(self.loader)
 
     def __iter__(self):
         for i, batch in enumerate(self.loader):
+            if 'num_voxels' in batch:
+                self.largest_num_voxels = max(self.largest_num_voxels,
+                                              int(np.max(batch['num_voxels'])))
             for k in self.per_batch:
                 k.launches = 0
             yield batch
@@ -2717,6 +2751,410 @@ def pointrcnn_step_split(torch, trainer, batch):
     return split
 
 
+def write_data_trees(root):
+    """The data phase's dataset trees under `root`, timed: a KITTI tree
+    (KITTI_TRAIN + KITTI_VAL frames of an HDL-64E scan, labels with a
+    DontCare line, calib, PNGs, planes) with the infos and gt database of
+    ``create_kitti_infos``, and a NuScenes tree (NUSCENES_TRAIN +
+    NUSCENES_VAL key frames of an HDL-32E scan with 9 sweeps each, gt with
+    velocities) with its gt database. Returns the two roots."""
+    import os
+
+    from lidardetection_tpu_torch.config import cfg_from_yaml_file
+    from lidardetection_tpu_torch.datasets import synthetic_trees
+    from lidardetection_tpu_torch.datasets.kitti.kitti_dataset import (
+        create_kitti_infos,
+    )
+    from lidardetection_tpu_torch.datasets.nuscenes.nuscenes_dataset import (
+        NuScenesDataset,
+    )
+
+    kitti, nuscenes = root / 'kitti', root / 'nuscenes'
+    t0 = time.perf_counter()
+    synthetic_trees.write_kitti_tree(kitti, KITTI_TRAIN, KITTI_VAL, seed=SEED)
+    points = [len(np.fromfile(f, np.float32)) // 4
+              for f in sorted((kitti / 'training' / 'velodyne').iterdir())]
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(None):  # a line per frame and object
+        create_kitti_infos(
+            cfg_from_yaml_file('tools/cfgs/dataset_configs/kitti_dataset.yaml'),
+            ['Car', 'Pedestrian', 'Cyclist'], kitti, kitti,
+            workers=os.cpu_count() or 1)
+    t2 = time.perf_counter()
+    print(f'KITTI tree: {KITTI_TRAIN} train and {KITTI_VAL} val frames of '
+          f'{min(points)}-{max(points)} returns written in {t1 - t0:.2f} s; '
+          f'create_kitti_infos (infos and gt database) {t2 - t1:.2f} s',
+          flush=True)
+    base = synthetic_trees.write_nuscenes_tree(
+        nuscenes, NUSCENES_TRAIN, NUSCENES_VAL, sweeps=NUSCENES_SWEEPS - 1,
+        seed=SEED)
+    sweep = len(np.fromfile(next((base / 'sweeps' / 'LIDAR_TOP').iterdir()),
+                            np.float32)) // 5
+    t3 = time.perf_counter()
+    cfg = cfg_from_yaml_file(CFG_CBGS_SECOND)
+    with contextlib.redirect_stdout(None):
+        NuScenesDataset(cfg.DATA_CONFIG, None, training=True,
+                        root_path=nuscenes).create_groundtruth_database(
+            np.random.RandomState(SEED), max_sweeps=NUSCENES_SWEEPS)
+    t4 = time.perf_counter()
+    print(f'NuScenes tree: {NUSCENES_TRAIN} train and {NUSCENES_VAL} val key '
+          f'frames with {NUSCENES_SWEEPS - 1} sweeps each ({sweep} returns in '
+          f'a sweep) written in {t3 - t2:.2f} s; its gt database '
+          f'{t4 - t3:.2f} s', flush=True)
+    return kitti, nuscenes
+
+
+def loader_train_phase(torch, trainer, name, batches, per_step, warmup, steps):
+    """The training main path fed by the loader: `warmup` + `steps`
+    optimizer steps, each on the next batch of the loader's iterator
+    `batches` (forked workers build them ahead); every launch count set to
+    0 just before each step and read just after. The warm-up takes at
+    least the batches the workers were sent when the iterator started
+    (workers x PREFETCH), so the timed steps read the loader at its steady
+    state. Per timed step, on the host clock: the wait for the batch, its
+    copy to the card (device drained after it) and the step (device
+    drained). Returns the launches of the timed steps, the timings and the
+    last batch on the card."""
+    from lidardetection_tpu_torch.parallel.train_step import device_batch
+
+    total = {k.__name__: 0 for k in per_step}
+    rows = []
+    for i in range(warmup + steps):
+        t0 = time.perf_counter()
+        batch = next(batches)
+        t1 = time.perf_counter()
+        on_card = device_batch(batch, 'cuda')
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for k in per_step:
+            k.launches = 0
+        tb = trainer.step(on_card)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        terms = {k: float(v) for k, v in tb.items()}
+        counts = {k.__name__: k.launches for k in per_step}
+        timed = i >= warmup
+        if i == 0 or i == warmup:
+            print(f'{name} step {i} from the loader'
+                  f'{"" if timed else " (warm-up)"}: loss {terms["loss"]:.4f}, '
+                  f'frames {batch["frame_id"].tolist()}, gt '
+                  f'{(batch["gt_boxes"][..., -1] > 0).sum(1).tolist()}, voxels '
+                  f'{batch["num_voxels"].tolist()}, launches {counts}',
+                  flush=True)
+        check(all(np.isfinite(v) for v in terms.values()),
+              f'{name} step {i} from the loader: finite loss terms')
+        check(finite_gradients(torch, trainer.model),
+              f'{name} step {i} from the loader: finite gradients')
+        for k, each in per_step.items():
+            check(k.launches == each, f'{name} step {i} from the loader: '
+                  f'{k.__name__} launched {k.launches} times, expected {each}')
+        rows.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3,
+                     (t3 - t0) * 1e3))
+        if timed:
+            for key, n in counts.items():
+                total[key] += n
+    warm, timed_rows = rows[:warmup], rows[warmup:]
+    print(f'{name} from the loader, wait / copy / step ms a step (host clock):'
+          f' warm-up {[round(r[0], 1) for r in warm]} / '
+          f'{[round(r[1], 1) for r in warm]} / {[round(r[2], 1) for r in warm]};'
+          f' timed {[round(r[0], 1) for r in timed_rows]} / '
+          f'{[round(r[1], 1) for r in timed_rows]} / '
+          f'{[round(r[2], 1) for r in timed_rows]}', flush=True)
+    wait, copy, step, whole = (float(np.median(c)) for c in zip(*timed_rows))
+    return total, {'warmup': warmup, 'steps': steps, 'p50_wait_ms': wait,
+                   'mean_wait_ms': float(np.mean([r[0] for r in timed_rows])),
+                   'p50_copy_ms': copy, 'p50_step_ms': step,
+                   'p50_iteration_ms': whole,
+                   'mean_iteration_ms': float(np.mean(
+                       [r[3] for r in timed_rows]))}, on_card
+
+
+def quiet_step_ms(torch, trainer, on_card, repeats=3):
+    """The step alone on a batch already on the card, with no loader worker
+    alive: p50 of `repeats` (host clock, device drained), beside the same
+    step taken while the workers build batches."""
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        trainer.step(on_card)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def eval_kernels_held(torch, step, batch):
+    """K1 and K2 on one bucketed eval batch from the loader: the eval step
+    run with their wrappers recorded, then each recorded call held against
+    its plain version on the card (K1 in bf16 and f32, K2 at the call's
+    dtype): the same bits required. Returns max|kernel - plain| of each,
+    by the wrapper's name."""
+    from lidardetection_tpu_torch.models.backbones_2d import map_to_bev
+    from lidardetection_tpu_torch.models.backbones_3d import vfe
+    from lidardetection_tpu_torch.ops.scatter_cuda import scatter_rows_plain
+    from lidardetection_tpu_torch.parallel.train_step import device_batch
+
+    k1_calls, k2_calls = [], []
+    with recorded(vfe, 'pillar_vfe', k1_calls), \
+            recorded(map_to_bev, 'scatter_rows', k2_calls):
+        step(device_batch(batch, 'cuda'))
+    check(len(k1_calls) == 1 and len(k2_calls) == 1,
+          f'eval batch from the loader: {len(k1_calls)} K1 and '
+          f'{len(k2_calls)} K2 calls, expected 1 each')
+    (vox, centers, pb, counts, w4, shift), _, _ = k1_calls[0]
+    e1 = vfe_held(torch, f'eval batch from the loader (V={vox.shape[1]}, '
+                  f'{int((counts > 0).sum())} live)', vox, centers, pb,
+                  counts, w4, shift)
+    args, _, got = k2_calls[0]
+    want = scatter_rows_plain(*args)
+    e2 = float((got.float() - want.float()).abs().max())
+    print(f'K2 scatter_rows, eval batch from the loader ({tuple(args[0].shape)}'
+          f' rows into {args[2]} slots): max|kernel-plain| = {e2} (bit-exact '
+          f'required: {torch.equal(got, want)})', flush=True)
+    check(torch.equal(got, want), 'scatter_rows on the eval batch from the '
+          'loader bit-exact')
+    return {'pillar_vfe': e1, 'scatter_rows': e2}
+
+
+def batch_build_ms(loader, repeats=3):
+    """The host time of one batch as a worker builds it (its samples
+    through ``prepare_data``, then the collate), in this process, median
+    of `repeats`."""
+    dataset, size = loader.dataset, loader.sampler.batch_size
+    times = []
+    for r in range(repeats):
+        t0 = time.perf_counter()
+        loader.collate([dataset[(r * size + j) % len(dataset)]
+                        for j in range(size)])
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def step_kernels_held(torch, trainer, batch, label, n_k3, n_k4):
+    """Every kernel launch of one training step's forward and backward on
+    `batch` (the trainer's own precision), each held against its plain
+    version on the same inputs on the card: K3 (forward and df) and K4
+    within 1e-4 of max|want|, as the step kernel phases hold them, K2 bit
+    for bit. Returns max|kernel - plain| of each, by the wrapper's name."""
+    from lidardetection_tpu_torch.ops import sparse
+    from lidardetection_tpu_torch.ops.scatter_cuda import scatter_rows_plain
+    from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
+        rulebook_conv, rulebook_conv_dw, rulebook_conv_dw_plain,
+        rulebook_conv_plain,
+    )
+
+    k2_calls = []
+    with recorded(sparse, 'scatter_rows', k2_calls):
+        _, dws, convs = record_weight_gradients(trainer, batch)
+    check(len(convs) == n_k3 and len(dws) == n_k4 and len(k2_calls) == 1,
+          f'{label} step: {len(convs)} K3, {len(dws)} K4 and {len(k2_calls)} '
+          f'K2 calls, expected {n_k3}, {n_k4} and 1')
+    errors = {}
+    for name, calls, kernel, plain in (
+            ('rulebook_conv', convs, rulebook_conv, rulebook_conv_plain),
+            ('rulebook_conv_dw', dws, rulebook_conv_dw, rulebook_conv_dw_plain)):
+        worst, share = 0.0, 0.0
+        for i, args in enumerate(calls):
+            with torch.no_grad():
+                got, want = kernel(*args), plain(*args)
+            e, top = float((got - want).abs().max()), float(want.abs().max())
+            check(top > 0 and e <= 1e-4 * top and bool(torch.isfinite(got).all()),
+                  f'{name} call {i} of a {label} step: max error {e} against '
+                  f'plain (max|want| {top})')
+            worst, share = max(worst, e), max(share, e / top)
+        errors[name] = worst
+        print(f'{name}, the {len(calls)} calls of a {label} step on a loader '
+              f'batch ({str(calls[0][0].dtype)[6:]}): max|kernel-plain| '
+              f'{worst:.3g}, at most {share:.3g} of the call\'s max|want| '
+              f'(tolerance 1e-4)', flush=True)
+    args, _, got = k2_calls[0]
+    want = scatter_rows_plain(*args)
+    errors['scatter_rows'] = float((got.float() - want.float()).abs().max())
+    check(torch.equal(got, want), f'scatter_rows of a {label} step on a '
+          'loader batch bit-exact')
+    print(f'scatter_rows of a {label} step on a loader batch: bit-exact',
+          flush=True)
+    return errors
+
+
+def data_layer_phase(torch, wrappers, root):
+    """Training and evaluation from dataset trees on disk through
+    ``datasets.build_dataloader`` (forked workers, min(8, cores) of them).
+    PointPillar evaluates the KITTI val split, bucketed, through the KITTI
+    protocol (1 K1, 1 K2 a batch; K1 and K2 held against their plain
+    versions on one of its batches). The CBGS SECOND multi-head trains
+    from the NuScenes tree with CBGS (37 K3, 19 K4, 1 K2 a step; each
+    kernel call of a step on its first batch held against the plain
+    version on the same inputs) and evaluates its val frames through
+    ``_kitti_style_eval`` (19 K3, 1 K2 a batch). SECOND (second.yaml,
+    bf16, B = 4) trains from the KITTI tree last (23 K3, 12 K4, 1 K2 a
+    step; one f32 step on its first batch, kernels against the plain
+    versions on the card and on the CPU). Each training run warms up on the batches its
+    workers were sent at the start (workers x PREFETCH) before the timed
+    steps. Returns the launches of each run, the largest K1 and K2 error
+    against the plain versions, the SECOND run's trainer and batch
+    iterator (warm-up + PROFILED_STEPS batches left) for the profiler,
+    and the warm-up's length."""
+    import logging
+    import os
+
+    from lidardetection_tpu_torch.config import cfg_from_yaml_file, dataset_info
+    from lidardetection_tpu_torch.datasets import PREFETCH, build_dataloader
+    from lidardetection_tpu_torch.engine.evaluator import eval_one_epoch
+    from lidardetection_tpu_torch.models import build_network
+    from lidardetection_tpu_torch.parallel.train_step import (
+        device_batch, make_eval_step,
+    )
+    from lidardetection_tpu_torch.train import Trainer
+
+    cores = os.cpu_count() or 1
+    workers = min(8, cores)
+    print(f'host: os.cpu_count() {cores}, loader workers {workers}', flush=True)
+    kitti, nuscenes = write_data_trees(root)
+    logger = logging.getLogger('chip_smoke.data')
+    runs, loader_json = {}, {'cpu_count': cores, 'workers': workers}
+
+    print('-- PointPillar evaluation from the KITTI tree --', flush=True)
+    pcfg = cfg_from_yaml_file(CFG)
+    classes = list(pcfg.CLASS_NAMES)
+    model = build_network(pcfg.MODEL, len(classes), dataset_info(pcfg.DATA_CONFIG),
+                          seed=SEED, class_names=classes).to('cuda')
+    zero_class_bias(torch, model)
+    _, test_loader = build_dataloader(
+        pcfg.DATA_CONFIG, classes, EVAL_BATCH, training=False, root_path=kitti,
+        workers=workers, logger=logger, model_cfg=pcfg.MODEL, seed=SEED)
+    step = make_eval_step(model, pcfg.MODEL.POST_PROCESSING, len(classes))
+    batch = next(iter(test_loader))
+    step(device_batch(batch, 'cuda'))  # warm-up
+    errors = eval_kernels_held(torch, step, batch)
+    torch.cuda.synchronize()
+    counted = CountedLoader(test_loader, dict(zip(wrappers, (1, 1, 0, 0, 0))))
+    result, annos = eval_one_epoch(model, counted, pcfg.MODEL.POST_PROCESSING,
+                                   classes, logger)
+    runs['PointPillar eval from files'] = counted.total
+    cap = int(pcfg.DATA_CONFIG.DATA_PROCESSOR[-1].MAX_NUMBER_OF_VOXELS['test'])
+    print(f'PointPillar eval from files: {len(annos)} val frames at B='
+          f'{EVAL_BATCH}, sec_per_example {result["sec_per_example"]:.4f} s '
+          f'(host clock), largest num_voxels {counted.largest_num_voxels} of '
+          f'the {cap} cap, Car 3D moderate R40 '
+          f'{result["Car_3d/moderate_R40"]:.2f} (random weights), recall '
+          f'{ {k: v for k, v in result.items() if k.startswith("recall/")} }',
+          flush=True)
+    check([a['frame_id'] for a in annos] ==
+          [f'{i:06d}' for i in range(KITTI_TRAIN, KITTI_TRAIN + KITTI_VAL)],
+          'PointPillar eval from files: one anno per val frame')
+    check(0 < counted.largest_num_voxels < cap,
+          'PointPillar eval from files: the test cap is not saturated')
+    check(all(np.isfinite(a['boxes_lidar']).all() for a in annos)
+          and 'Car_3d/moderate_R40' in result,
+          'PointPillar eval from files: finite boxes, the protocol ran')
+    loader_json['PointPillar eval'] = {
+        'sec_per_example': result['sec_per_example'],
+        'largest_num_voxels': counted.largest_num_voxels}
+    del model, step
+
+    print('-- CBGS SECOND multi-head from the NuScenes tree --', flush=True)
+    ctrainer = Trainer(CFG_CBGS_SECOND, device='cuda', seed=SEED,
+                       total_steps=1000)
+    ccfg = ctrainer.cfg
+    cclasses = list(ccfg.CLASS_NAMES)
+    warmup = workers * PREFETCH
+    n_batches = 1 + warmup + CBGS_LOADER_STEPS
+    cdataset, cloader = build_dataloader(
+        ccfg.DATA_CONFIG, cclasses, TRAIN_BATCH, training=True,
+        root_path=nuscenes, workers=workers, logger=logger,
+        model_cfg=ccfg.MODEL, merge_all_iters_to_one_epoch=True,
+        total_epochs=-(-n_batches * TRAIN_BATCH // NUSCENES_TRAIN), seed=SEED)
+    print(f'CBGS: {NUSCENES_TRAIN} train frames resampled to '
+          f'{len(cdataset.infos)} a pass', flush=True)
+    check(len(cdataset.infos) > NUSCENES_TRAIN and len(cloader) >= n_batches,
+          f'CBGS resampled the train frames; {len(cloader)} batches')
+    build = batch_build_ms(cloader, repeats=1)  # no worker alive yet
+    t0 = time.perf_counter()
+    cbatches = iter(cloader)
+    first = next(cbatches)
+    startup = (time.perf_counter() - t0) * 1e3
+    for name, e in step_kernels_held(
+            torch, ctrainer, device_batch(first, 'cuda'),
+            'CBGS SECOND multi-head', 19 + 18, 19).items():
+        errors[name] = max(errors.get(name, 0.0), e)
+    launches, timing, on_card = loader_train_phase(
+        torch, ctrainer, 'CBGS SECOND multi-head', cbatches,
+        dict(zip(wrappers, (0, 1, 19 + 18, 19, 0))), warmup, CBGS_LOADER_STEPS)
+    cbatches.close()  # the workers end
+    quiet = quiet_step_ms(torch, ctrainer, on_card)
+    runs['CBGS SECOND multi-head training from files'] = launches
+    timing.update({'first_batch_ms': startup, 'batch_build_ms': build,
+                   'step_without_workers_ms': quiet})
+    loader_json['CBGS SECOND multi-head'] = timing
+    print(f'CBGS SECOND from files, {CBGS_LOADER_STEPS} steps after {warmup} '
+          f'of warm-up: iteration p50 {timing["p50_iteration_ms"]:.2f} ms '
+          f'(mean {timing["mean_iteration_ms"]:.2f}) = wait on the loader '
+          f'{timing["p50_wait_ms"]:.2f} ms (mean {timing["mean_wait_ms"]:.2f})'
+          f' + copy {timing["p50_copy_ms"]:.2f} ms + step '
+          f'{timing["p50_step_ms"]:.2f} ms; the same step with no worker '
+          f'alive {quiet:.2f} ms; a batch of {TRAIN_BATCH} built in one '
+          f'process {build:.2f} ms; the first batch {startup:.2f} ms',
+          flush=True)
+    zero_class_bias(torch, ctrainer.model)
+    _, ctest = build_dataloader(
+        ccfg.DATA_CONFIG, cclasses, NUSCENES_VAL, training=False,
+        root_path=nuscenes, workers=workers, logger=logger,
+        model_cfg=ccfg.MODEL, seed=SEED)
+    counted = CountedLoader(ctest, dict(zip(wrappers, (0, 1, 19, 0, 0))))
+    result, annos = eval_one_epoch(ctrainer.model, counted,
+                                   ccfg.MODEL.POST_PROCESSING, cclasses, logger)
+    runs['CBGS SECOND multi-head eval from files'] = counted.total
+    ap = {k: round(float(v), 4) for k, v in result.items()
+          if k.endswith('moderate_R40')}
+    print(f'CBGS SECOND eval from files (_kitti_style_eval): {len(annos)} val '
+          f'frames, sec_per_example {result["sec_per_example"]:.4f} s, '
+          f'largest num_voxels {counted.largest_num_voxels}, moderate R40 AP '
+          f'keys {ap}', flush=True)
+    check(len(annos) == NUSCENES_VAL and {
+        'Car_3d/moderate_R40', 'Truck_3d/moderate_R40',
+        'Pedestrian_3d/moderate_R40'} <= set(ap),
+        'CBGS SECOND eval from files: the KITTI protocol over car, truck '
+        'and pedestrian')
+    del ctrainer, on_card
+
+    print('-- SECOND training from the KITTI tree --', flush=True)
+    trainer = Trainer(CFG_SECOND, device='cuda', seed=SEED, total_steps=1000)
+    cfg = trainer.cfg
+    n_batches = 1 + 2 * warmup + LOADER_STEPS + PROFILED_STEPS
+    _, loader = build_dataloader(
+        cfg.DATA_CONFIG, list(cfg.CLASS_NAMES), TRAIN_BATCH, training=True,
+        root_path=kitti, workers=workers, logger=logger, model_cfg=cfg.MODEL,
+        merge_all_iters_to_one_epoch=True,
+        total_epochs=-(-n_batches * TRAIN_BATCH // KITTI_TRAIN), seed=SEED)
+    check(len(loader) >= n_batches and loader.num_workers == workers,
+          f'SECOND loader: {len(loader)} batches, {loader.num_workers} workers')
+    build = batch_build_ms(loader)  # no worker alive yet
+    t0 = time.perf_counter()
+    batches = iter(loader)
+    first = next(batches)
+    startup = (time.perf_counter() - t0) * 1e3
+    check(any(k.startswith('rb_') for k in first) and 'points' not in first,
+          'SECOND loader batches carry the host plan and no raw points')
+    compare_train_phase(torch, trainer, CFG_SECOND, device_batch(first, 'cuda'),
+                        wrappers)
+    launches, timing, _ = loader_train_phase(
+        torch, trainer, 'SECOND', batches,
+        dict(zip(wrappers, (0, 1, 12 + 11, 12, 0))), warmup, LOADER_STEPS)
+    runs['SECONDNet training from files'] = launches
+    timing.update({'first_batch_ms': startup, 'batch_build_ms': build})
+    loader_json['SECONDNet'] = timing
+    print(f'SECOND from files, {LOADER_STEPS} steps after {warmup} of '
+          f'warm-up: iteration p50 {timing["p50_iteration_ms"]:.2f} ms (mean '
+          f'{timing["mean_iteration_ms"]:.2f}) = wait on the loader '
+          f'{timing["p50_wait_ms"]:.2f} ms (mean {timing["mean_wait_ms"]:.2f})'
+          f' + copy {timing["p50_copy_ms"]:.2f} ms + step '
+          f'{timing["p50_step_ms"]:.2f} ms (host clock); a batch of '
+          f'{TRAIN_BATCH} built in one process {build:.2f} ms; the first '
+          f'batch (workers forked) {startup:.2f} ms', flush=True)
+    print(json.dumps({'loader': loader_json}), flush=True)
+    return runs, errors, trainer, batches, warmup
+
+
 def main():
     import torch
 
@@ -3030,8 +3468,30 @@ def main():
     protocol_phase(evals)
     precise_bn_phase(torch)
 
+    print('== the data layer: training and evaluation from files ==', flush=True)
+    data_root = tempfile.TemporaryDirectory(prefix='chip_smoke_data_')
+    t0 = time.perf_counter()
+    runs_from_files, errors_from_files, trainer_files, batches_files, \
+        refill_files = data_layer_phase(torch, wrappers, Path(data_root.name))
+    print(f'data layer phase: {time.perf_counter() - t0:.1f} s', flush=True)
+
     print('== under the profiler ==', flush=True)
     scatter_launch_count(torch, *scatter_case)
+
+    def steps_from_files(n):
+        from lidardetection_tpu_torch.parallel.train_step import device_batch
+        for _ in range(n):
+            trainer_files.step(device_batch(next(batches_files), 'cuda'))
+
+    # the workers have built their batches ahead again since the timed
+    # steps: take those first, so that the traced steps read the loader at
+    # its steady state; the wait inside the traced span gives the device's
+    # idle share of training from files
+    steps_from_files(refill_files)
+    profile_run(torch, f'SECONDNet: {PROFILED_STEPS} training steps fed by '
+                'the loader', lambda: steps_from_files(PROFILED_STEPS))
+    batches_files.close()  # the loader's workers end
+    data_root.cleanup()
     for det, points in profiled:
         profile_request(torch, det, points)
     for each, batch in ((trainer_pillar, batch_pillar),
@@ -3043,7 +3503,7 @@ def main():
         profile_run(torch, f'{each.cfg["MODEL"]["NAME"]} training step',
                     lambda: each.step(batch))
 
-    # launches: the sum over the twenty-three main paths' runs, each
+    # launches: the sum over the twenty-seven main paths' runs, each
     # counted from 0
     runs = {'PointPillar serving': launches, 'SECONDNet serving': launches_second,
             'PVRCNN serving': launches_pvrcnn,
@@ -3066,7 +3526,7 @@ def main():
             'CBGS PointPillar multi-head training': launches_train_cbgs_pp,
             'PV-RCNN multiframe training': launches_train_multiframe,
             'PartA2-free training': launches_train_free,
-            'SECOND multi-head eval': launches_eval_mh}
+            'SECOND multi-head eval': launches_eval_mh, **runs_from_files}
     # Part-A²'s per-layer rows on a line of their own, its totals in the
     # kernels line
     parta2_rows = {'K3 request': k3_parta2.pop('layers'),
@@ -3089,6 +3549,11 @@ def main():
                             k3_cbgs['max_abs_err'])
     k4['max_abs_err'] = max(k4['max_abs_err'], k4_parta2['max_abs_err'],
                             k4_cbgs['max_abs_err'])
+    # K1 and K2 on an eval batch from the loader, K2-K4 on a CBGS training
+    # batch from it
+    for k in (k1, k2, k3, k4):
+        k['max_abs_err'] = max(k['max_abs_err'],
+                               errors_from_files.get(k['name'], 0.0))
     kernels = [k1, k2, k3, k4, k5]
     for k in kernels:
         k['launches'] = sum(run.get(k['name'], 0) for run in runs.values())

@@ -2,8 +2,10 @@
 annotations: a copy of what they need of
 lidardetection_tpu/core/np_geometry.py (``limit_period``,
 ``boxes_to_corners_3d``, ``corners_bev``, ``boxes_bev_iou_cpu`` with
-``_polygon_intersection_area``, and the lidar / KITTI-camera / image box
-conversions).
+``_polygon_intersection_area``, the lidar / KITTI-camera / image box
+conversions), and what the data layer needs of it (``points_in_boxes``,
+``remove_points_in_boxes``, ``in_hull``, ``mask_points_in_fov``). The range
+masks of points and boxes are in ``datasets/processor/data_processor.py``.
 
 ``boxes_bev_iou_cpu`` runs the native library (``native/``); its numpy
 polygon clipping is the plain version, taken only when the caller asks for
@@ -40,6 +42,49 @@ def boxes_to_corners_3d(boxes3d):
     corners = boxes3d[:, None, 3:6] * template[None]
     corners = rotate_points_along_z(corners, boxes3d[:, 6])
     return corners + boxes3d[:, None, 0:3]
+
+
+def points_in_boxes(points, boxes):
+    """(N, 3), (M, 7) -> (N, M) bool: each point inside each box (x and y
+    strictly, z up to the faces)."""
+    if boxes.shape[0] == 0:
+        return np.zeros((points.shape[0], 0), dtype=bool)
+    shift = points[:, None, :3] - boxes[None, :, 0:3]
+    cosa, sina = np.cos(-boxes[:, 6]), np.sin(-boxes[:, 6])
+    local_x = shift[..., 0] * cosa[None] - shift[..., 1] * sina[None]
+    local_y = shift[..., 0] * sina[None] + shift[..., 1] * cosa[None]
+    return ((np.abs(local_x) < boxes[None, :, 3] / 2)
+            & (np.abs(local_y) < boxes[None, :, 4] / 2)
+            & (np.abs(shift[..., 2]) <= boxes[None, :, 5] / 2))
+
+
+def remove_points_in_boxes(points, boxes):
+    """The points inside no box (box_utils.remove_points_in_boxes3d:74)."""
+    inside = points_in_boxes(points[:, 0:3], boxes[:, 0:7])
+    return points[~inside.any(axis=1)]
+
+
+def in_hull(p, hull):
+    """(N,) bool: the (N, K) points inside the convex hull of the (M, K)
+    corners (box_utils.in_hull:10); none for a flat hull, which scipy's
+    Delaunay refuses."""
+    from scipy.spatial import Delaunay, QhullError
+
+    try:
+        if not isinstance(hull, Delaunay):
+            hull = Delaunay(hull)
+        return hull.find_simplex(p) >= 0
+    except QhullError:
+        return np.zeros(p.shape[0], dtype=bool)
+
+
+def mask_points_in_fov(pts_rect, img_shape, calib):
+    """(N,) bool: rect-frame points that project into the image, in front
+    of the camera (kitti_dataset.get_fov_flag:100-117)."""
+    pts_img, pts_depth = calib.rect_to_img(pts_rect)
+    flag = ((pts_img[:, 0] >= 0) & (pts_img[:, 0] < img_shape[1])
+            & (pts_img[:, 1] >= 0) & (pts_img[:, 1] < img_shape[0]))
+    return flag & (pts_depth >= 0)
 
 
 def corners_bev(boxes):
@@ -117,6 +162,16 @@ def _polygon_intersection_area(ca, cb):
     contrib = np.where(idx[None, None, :] < nv[..., None], cross, 0.0)
     area = 0.5 * np.abs(contrib.sum(axis=2))
     return np.where(nv >= 3, area, 0.0)
+
+
+def boxes3d_kitti_camera_to_lidar(boxes3d_camera, calib):
+    """(N, 7) [x,y,z,l,h,w,r] rect -> unified lidar boxes (box_utils.py:91)."""
+    xyz_camera = boxes3d_camera[:, 0:3]
+    l, h, w, r = (boxes3d_camera[:, 3:4], boxes3d_camera[:, 4:5],
+                  boxes3d_camera[:, 5:6], boxes3d_camera[:, 6:7])
+    xyz_lidar = calib.rect_to_lidar(xyz_camera)
+    xyz_lidar[:, 2] += h[:, 0] / 2
+    return np.concatenate([xyz_lidar, l, w, h, -(r + np.pi / 2)], axis=-1)
 
 
 def boxes3d_lidar_to_kitti_camera(boxes3d_lidar, calib=None):

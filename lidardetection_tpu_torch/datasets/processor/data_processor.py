@@ -1,15 +1,26 @@
-"""The point processors of a point-based config (copy of lidardetection_tpu/
-datasets/processor/data_processor.py:31-133): the range mask, near/far-aware
-sampling, the shuffle and the fixed-capacity padding, on host numpy.
+"""The per-sample processors (copy of lidardetection_tpu/datasets/
+processor/data_processor.py): the range mask, near/far-aware sampling, the
+shuffle and the fixed-capacity padding as functions, on host numpy, and
+the ``DataProcessor`` chain of a config's DATA_PROCESSOR over them, which
+voxelizes with ``ops/voxelize.py::voxelize_np``.
 
 The JAX package's processors draw from numpy's global generator; these take
 an ``np.random.RandomState`` that the caller owns. ``RandomState(s)`` draws
 what ``np.random.seed(s)`` followed by the global calls draws, so the same
-seed gives the same points bit for bit. The voxelizer is
-``ops/voxelize.py``.
+seed gives the same points bit for bit.
+
+Two things of the JAX chain are left out. The TPU scatter's tile
+histogram (``bev_tile_starts``) is a TPU workaround: the CUDA scatter
+writes each row straight to its key. And the raw points are padded to
+MAX_POINTS only where the model reads them (``config.raw_point_capacity``);
+elsewhere a sample keeps its in-range points as they are.
 """
 
+import warnings
+
 import numpy as np
+
+from ...config import grid_size_from_range
 
 NEAR_DEPTH = 40.0  # data_processor.py:101: points nearer are subsampled first
 
@@ -109,3 +120,92 @@ def process_points(points, processor_cfgs, point_cloud_range, training, rng):
         else:
             raise NotImplementedError(f'point processor {name}')
     return points
+
+
+class DataProcessor:
+    """A config's DATA_PROCESSOR entries, chained in their order (JAX
+    :16-137). ``forward(data_dict, rng)`` runs them on one sample; `rng`
+    draws the shuffle and the sample. `max_points`, when given, pads the
+    raw points to it and adds ``num_points``."""
+
+    def __init__(self, processor_configs, point_cloud_range, training,
+                 max_points=None):
+        self.point_cloud_range = np.asarray(point_cloud_range, np.float32)
+        self.training = training
+        self.mode = 'train' if training else 'test'
+        self.grid_size = self.voxel_size = None
+        self.max_points = max_points
+        self.data_processor_queue = []
+        for cur_cfg in processor_configs:
+            cur_processor = getattr(self, cur_cfg['NAME'])(config=cur_cfg)
+            self.data_processor_queue.append(cur_processor)
+
+    def mask_points_and_boxes_outside_range(self, data_dict=None, config=None,
+                                            rng=None):
+        if data_dict is None:
+            return lambda d, rng: self.mask_points_and_boxes_outside_range(
+                d, config, rng)
+        mask = mask_points_by_range(data_dict['points'], self.point_cloud_range)
+        data_dict['points'] = data_dict['points'][mask]
+        if data_dict.get('gt_boxes', None) is not None \
+                and config.get('REMOVE_OUTSIDE_BOXES', False) and self.training:
+            box_mask = mask_boxes_outside_range(
+                data_dict['gt_boxes'], self.point_cloud_range, min_num_corners=1)
+            data_dict['gt_boxes'] = data_dict['gt_boxes'][box_mask]
+            for key in ('gt_names', 'locations', 'rotations_y'):
+                if key in data_dict and data_dict[key] is not None \
+                        and len(data_dict[key]) == len(box_mask):
+                    data_dict[key] = data_dict[key][box_mask]
+        return data_dict
+
+    def shuffle_points(self, data_dict=None, config=None, rng=None):
+        if data_dict is None:
+            return lambda d, rng: self.shuffle_points(d, config, rng)
+        if config['SHUFFLE_ENABLED'][self.mode]:
+            data_dict['points'] = shuffle_points(data_dict['points'], rng)
+        return data_dict
+
+    def transform_points_to_voxels(self, data_dict=None, config=None, rng=None):
+        if data_dict is None:
+            self.voxel_size = np.asarray(config['VOXEL_SIZE'], np.float32)
+            self.grid_size = grid_size_from_range(
+                self.point_cloud_range, self.voxel_size)
+            self.max_points_per_voxel = config['MAX_POINTS_PER_VOXEL']
+            self.max_voxels = config['MAX_NUMBER_OF_VOXELS'][self.mode]
+            return lambda d, rng: self.transform_points_to_voxels(d, config, rng)
+        from ...ops.voxelize import voxelize_np
+
+        voxels, coords, npts, nv = voxelize_np(
+            data_dict['points'], self.point_cloud_range, self.voxel_size,
+            self.max_points_per_voxel, self.max_voxels)
+        if nv >= self.max_voxels and not self.training:
+            # the table keeps the first voxels in scan order (eval does not
+            # shuffle): a spatially biased crop that can zero AP
+            warnings.warn(
+                f'MAX_NUMBER_OF_VOXELS[test]={self.max_voxels} saturated '
+                f'(scene produced >= cap); eval truncation is spatially '
+                f'biased and can zero AP — raise the cap', RuntimeWarning,
+                stacklevel=2)
+        data_dict['voxels'] = voxels
+        data_dict['voxel_coords'] = coords
+        data_dict['voxel_num_points'] = npts
+        data_dict['num_voxels'] = np.int32(nv)
+        return data_dict
+
+    def sample_points(self, data_dict=None, config=None, rng=None):
+        if data_dict is None:
+            return lambda d, rng: self.sample_points(d, config, rng)
+        data_dict['points'] = sample_points(
+            data_dict['points'], config['NUM_POINTS'][self.mode], rng)
+        return data_dict
+
+    def forward(self, data_dict, rng):
+        for cur_processor in self.data_processor_queue:
+            data_dict = cur_processor(data_dict, rng)
+        points = np.asarray(data_dict['points'], np.float32)
+        if self.max_points is None:
+            data_dict['points'] = points
+        else:
+            data_dict['points'], data_dict['num_points'] = pad_points(
+                points, self.max_points)
+        return data_dict

@@ -23,7 +23,20 @@ shuffles (and for a point config samples) each cloud's points, and a generator m
 (``seed``, step) for the random layers (the two-stage detectors' RoI
 sampling and dropout, ``parallel/train_step.py::step_draw``), all from ``seed``.
 
-CLI, training on synthetic scenes made from ``--seed``:
+CLI: with ``--data_path`` it trains from a dataset tree on disk (a KITTI
+or NuScenes layout with its infos, ``datasets/kitti/kitti_dataset.py``)
+through ``datasets.build_dataloader`` (``--workers`` forked processes
+build the batches ahead of the step) and ``Trainer.fit``, with a
+checkpoint each epoch under ``--output_dir`` (a run on a directory that
+holds one resumes), then evaluates the test split through
+``engine/evaluator.py::eval_one_epoch``, the counterpart of
+tools/train.py:105-147 in one process:
+
+    python -m lidardetection_tpu_torch.train \
+        --cfg_file tools/cfgs/kitti_models/second.yaml --data_path <root> \
+        --workers 8 --epochs 1
+
+Without it, it trains on synthetic scenes made from ``--seed``:
 
     python -m lidardetection_tpu_torch.train \\
         --cfg_file tools/cfgs/kitti_models/second.yaml --num_steps 4 --batch_size 4
@@ -41,6 +54,7 @@ CLI, training on synthetic scenes made from ``--seed``:
 import argparse
 import logging
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -48,14 +62,17 @@ import torch
 from .config import (
     cfg_from_yaml_file, dataset_info, raw_point_capacity, voxel_processor_cfg,
 )
+from .datasets import build_dataloader
 from .datasets.synthetic import (
     SyntheticDataset, SyntheticLoader, scene_options,
 )
+from .engine.evaluator import eval_one_epoch
 from .engine.trainer import train_model
 from .models import build_network
 from .ops.sparse_plan import config_plan
 from .ops.voxelize import build_batch, build_point_batch
 from .parallel.train_step import TrainState, device_batch, make_train_step
+from .utils.common import create_logger
 from .utils.optimization import build_optimizer
 
 
@@ -161,15 +178,57 @@ class Trainer:
             lr_fn=self.lr_fn, **kwargs)
 
 
+def train_from_files(args, trainer, batch_size):
+    """Train on the tree at ``args.data_path``, then evaluate its test
+    split; returns the eval's result dict."""
+    cfg = trainer.cfg
+    output_dir = Path(args.output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    logger = create_logger(output_dir / 'log_train.txt')
+    classes = list(cfg['CLASS_NAMES'])
+    _, loader = build_dataloader(
+        cfg['DATA_CONFIG'], classes, batch_size, training=True,
+        root_path=args.data_path, workers=args.workers, logger=logger,
+        model_cfg=cfg['MODEL'], seed=args.seed)
+    logger.info('%d training batches of %d a epoch, %d loader workers',
+                len(loader), batch_size, loader.num_workers)
+    trainer.fit(loader, output_dir / 'ckpt', logger, total_epochs=args.epochs)
+    _, test_loader = build_dataloader(
+        cfg['DATA_CONFIG'], classes, batch_size, training=False,
+        root_path=args.data_path, workers=args.workers, logger=logger,
+        model_cfg=cfg['MODEL'], seed=args.seed)
+    result, _ = eval_one_epoch(trainer.model, test_loader,
+                               cfg['MODEL']['POST_PROCESSING'], classes, logger,
+                               result_dir=output_dir / 'eval')
+    return result
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--cfg_file', default='tools/cfgs/kitti_models/pointpillar.yaml')
-    parser.add_argument('--num_steps', type=int, default=4)
+    parser.add_argument('--num_steps', type=int, default=4,
+                        help='synthetic scenes: the steps to take')
     parser.add_argument('--batch_size', type=int, default=None,
                         help='default: OPTIMIZATION.BATCH_SIZE_PER_GPU')
     parser.add_argument('--device', default='cuda')
     parser.add_argument('--seed', type=int, default=0)
+    parser.add_argument('--data_path', default=None,
+                        help='train and evaluate from the dataset tree here')
+    parser.add_argument('--workers', type=int, default=4,
+                        help='loader worker processes (0 or 1: none)')
+    parser.add_argument('--epochs', type=int, default=None,
+                        help='default: OPTIMIZATION.NUM_EPOCHS')
+    parser.add_argument('--output_dir', default=None,
+                        help='checkpoints, log and eval (default: '
+                        'output/<cfg name>)')
     args = parser.parse_args(argv)
+
+    if args.data_path is not None:
+        trainer = Trainer(args.cfg_file, device=args.device, seed=args.seed)
+        if args.output_dir is None:
+            args.output_dir = str(Path('output') / Path(args.cfg_file).stem)
+        return train_from_files(args, trainer, args.batch_size or int(
+            trainer.cfg['OPTIMIZATION']['BATCH_SIZE_PER_GPU']))
 
     trainer = Trainer(args.cfg_file, device=args.device, seed=args.seed,
                       total_steps=args.num_steps)
