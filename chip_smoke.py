@@ -1,7 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: PointPillar,
 SECOND, Part-A² and PointRCNN, serving, training and evaluation; PV-RCNN
 serving and training; the variants (the NuScenes CBGS multi-head
-detectors, multiframe PV-RCNN, PartA2-free, second_multihead).
+detectors, multiframe PV-RCNN, PartA2-free, second_multihead); training
+and evaluation from KITTI, NuScenes, PlusAI and Mix trees on disk; a
+one-process NCCL group.
 
     python3 chip_smoke.py        # from the repository root, one card
 
@@ -203,6 +205,32 @@ and the step apart, a batch's build time in one process). In the
 profiler's section, after K2's launch count, 16 untraced SECOND steps
 take the batches the workers built ahead meanwhile, then 16 traced ones
 fed by the loader give the idle share of training from files.
+In the data phase, the CBGS step's loader batch also takes one whole f32
+step with the kernels against the plain versions: every K3 and K4 call
+within sqrt(terms) units of float32 rounding of its plain version, the
+loss within 1e-6, and each gradient leaf's gap read beside 3 times the
+plain step's own move under a one-ulp change of the input points and
+under other summation orders (``whole_step_phase``). PV-RCNN's and
+multiframe PV-RCNN's synthetic training runs take two identical steps
+leaf by leaf, with the ops deterministic mode names.
+
+    python3 chip_smoke.py --deterministic-cost
+
+builds the kernels and times, instead of the phases above, the training
+step of PV-RCNN, multiframe PV-RCNN and PointRCNN in deterministic mode
+and without (``deterministic_cost``).
+The fork's datasets, after the data layer: a PlusAI multiframe tree (4
+scenes of 6 frames of a forward 64-beam sector, ~51k returns, stacked
+three at a time by the port's MOT generator) and a Mix tree (16 frames
+of a Livox tree and a fake-lidar tree from blank scenes and an object
+database, mixed by the port's generator), their infos and gt databases;
+pv_rcnn_multiframe.yaml and pointpillars_xy.yaml each train from theirs
+(16 warm-up and 8 timed steps, wait / copy / step) and evaluate the val
+split through the KITTI protocol, every kernel call of one multiframe
+step on a loader batch held against its plain version (K5 bit for bit),
+K1 and K2 bit for bit on a Mix eval batch; then the Mix trainer in a
+one-process NCCL group: its step and its eval through
+``merge_results_dist`` against the bare ones (``distributed_phase``).
 The line before the last is the kernels' JSON (K5's entry with PointRCNN's
 two levels under ``pointrcnn``; K3's and K4's at VoxelResBackBone8x's
 shapes under ``cbgs``), preceded by the card's name and power limit; the
@@ -248,6 +276,10 @@ NUSCENES_TRAIN, NUSCENES_VAL = 4, 2  # and NuScenes tree's key frames
 LOADER_STEPS = 48      # SECOND steps timed from the loader (after warm-up)
 PROFILED_STEPS = 16    # and then under the profiler
 CBGS_LOADER_STEPS = 8  # CBGS SECOND multi-head steps timed from the loader
+CFG_MIX_PP = 'tools/cfgs/mix_data_models/pointpillars_xy.yaml'
+PLUSAI_SCENES, PLUSAI_FRAMES = 4, 6  # 4 stacked samples a scene, the last in val
+MIX_FRAMES, MIX_VAL = 16, 4          # the Mix tree's frames, those in val
+FORK_LOADER_STEPS = 8  # steps timed from the loader, each fork config
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12     # H100 SXM, dense bf16 on the tensor cores
@@ -2018,9 +2050,11 @@ def compare_train_phase(torch, trainer, cfg_file, batch, wrappers):
 def reproducibility_phase(torch, trainer, batch):
     """Two identical training steps from the same state on the same
     batch: every parameter, BatchNorm statistic and Adam moment after the
-    step compared bit for bit. Where a leaf differs, the step is run again
-    under ``torch.use_deterministic_algorithms(True, warn_only=True)`` and
-    the ops it warns about are printed. Reports; the state is put back."""
+    step compared bit for bit. Where a leaf differs, the differing leaves
+    are counted by kind and module, and the step is run again under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``: the ops
+    it warns about are printed and two such steps compared in turn.
+    Reports; the state is put back."""
     import copy
     import warnings
 
@@ -2045,18 +2079,76 @@ def reproducibility_phase(torch, trainer, batch):
           f'{len(runs[0])} leaves bit-equal'
           + (f'; differ: {differ[:12]}' if differ else ''), flush=True)
     if differ:
-        trainer.state.load_state_dict(copy.deepcopy(saved))
+        groups = {}
+        for k in differ:
+            kind, name = k.split('/', 1)
+            group = f'{kind}/{name.split(".")[0]}'
+            groups[group] = groups.get(group, 0) + 1
+        print(f'differing leaves by kind and module: {groups}', flush=True)
+
+        det = []
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter('always')
-            torch.use_deterministic_algorithms(True, warn_only=True)
-            try:
-                trainer.step(batch)
-            finally:
-                torch.use_deterministic_algorithms(False)
+            for _ in range(2):
+                trainer.state.load_state_dict(copy.deepcopy(saved))
+                deterministic_step(torch, trainer, batch)
+                det.append(leaves())
         ops = sorted({str(w.message).split('\n')[0][:160] for w in caught})
-        print(f'deterministic mode names {len(ops)} op(s): {ops}', flush=True)
+        still = [k for k in det[0] if not torch.equal(det[0][k], det[1][k])]
+        print(f'deterministic mode names {len(ops)} op(s): {ops}; two '
+              f'identical {trainer.cfg["MODEL"]["NAME"]} steps in it: '
+              f'{len(det[0]) - len(still)} of {len(det[0])} leaves bit-equal',
+              flush=True)
     trainer.state.load_state_dict(saved)
     return differ
+
+
+def deterministic_step(torch, trainer, batch):
+    """One training step under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``, the mode switched off after it."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        trainer.step(batch)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def deterministic_cost(torch, trainer_for):
+    """The step's cost of deterministic mode: for PV-RCNN, multiframe
+    PV-RCNN and PointRCNN (the families whose two identical steps differ),
+    from one state on one batch, 2 warm-up steps of each mode, then 5 of
+    each alternating; p50 on the host clock, the device drained around
+    each step. `trainer_for(cfg_file)` gives the trainer."""
+    import copy
+    import warnings
+
+    for cfg_file, seed in ((CFG_PVRCNN, SEED + 600),
+                           (CFG_MULTIFRAME, SEED + 1400),
+                           (CFG_POINTRCNN, SEED + 1000)):
+        trainer = trainer_for(cfg_file)
+        batch = train_batches(trainer, 1, seed)[0][0]
+        saved = copy.deepcopy(trainer.state.state_dict())
+        times = {True: [], False: []}
+        with warnings.catch_warnings():
+            warnings.simplefilter('ignore')
+            for i in range(14):
+                deterministic = bool(i % 2)
+                trainer.state.load_state_dict(copy.deepcopy(saved))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if deterministic:
+                    deterministic_step(torch, trainer, batch)
+                else:
+                    trainer.step(batch)
+                torch.cuda.synchronize()
+                if i >= 4:
+                    times[deterministic].append(
+                        (time.perf_counter() - t0) * 1e3)
+        det, plain = (float(np.median(times[m])) for m in (True, False))
+        print(f'{trainer.cfg["MODEL"]["NAME"]} ({cfg_file}) step p50 of 5: '
+              f'{det:.2f} ms in deterministic mode, {plain:.2f} ms without '
+              f'(+{100 * (det / plain - 1):.1f}%, host clock)', flush=True)
+        del trainer, batch, saved
 
 
 def host_plan_phase(trainer):
@@ -2929,12 +3021,13 @@ def batch_build_ms(loader, repeats=3):
     return float(np.median(times))
 
 
-def step_kernels_held(torch, trainer, batch, label, n_k3, n_k4):
+def step_kernels_held(torch, trainer, batch, label, n_k3, n_k4, n_k5=0):
     """Every kernel launch of one training step's forward and backward on
     `batch` (the trainer's own precision), each held against its plain
     version on the same inputs on the card: K3 (forward and df) and K4
-    within 1e-4 of max|want|, as the step kernel phases hold them, K2 bit
-    for bit. Returns max|kernel - plain| of each, by the wrapper's name."""
+    within 1e-4 of max|want|, as the step kernel phases hold them, K2 and
+    K5 (`n_k5` calls: the point ops of a two-stage detector) bit for bit.
+    Returns max|kernel - plain| of each, by the wrapper's name."""
     from lidardetection_tpu_torch.ops import sparse
     from lidardetection_tpu_torch.ops.scatter_cuda import scatter_rows_plain
     from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
@@ -2944,11 +3037,18 @@ def step_kernels_held(torch, trainer, batch, label, n_k3, n_k4):
 
     k2_calls = []
     with recorded(sparse, 'scatter_rows', k2_calls):
-        _, dws, convs = record_weight_gradients(trainer, batch)
-    check(len(convs) == n_k3 and len(dws) == n_k4 and len(k2_calls) == 1,
-          f'{label} step: {len(convs)} K3, {len(dws)} K4 and {len(k2_calls)} '
-          f'K2 calls, expected {n_k3}, {n_k4} and 1')
+        k5_calls, (_, dws, convs) = record_ball_selects(
+            lambda: record_weight_gradients(trainer, batch))
+    check(len(convs) == n_k3 and len(dws) == n_k4 and len(k2_calls) == 1
+          and len(k5_calls) == n_k5,
+          f'{label} step: {len(convs)} K3, {len(dws)} K4, {len(k2_calls)} '
+          f'K2 and {len(k5_calls)} K5 calls, expected {n_k3}, {n_k4}, 1 and '
+          f'{n_k5}')
     errors = {}
+    for i, args in enumerate(k5_calls):
+        e, _ = select_held(torch, args, f'call {i} of a {label} step on a '
+                           'loader batch')
+        errors['ball_select'] = max(errors.get('ball_select', 0.0), e)
     for name, calls, kernel, plain in (
             ('rulebook_conv', convs, rulebook_conv, rulebook_conv_plain),
             ('rulebook_conv_dw', dws, rulebook_conv_dw, rulebook_conv_dw_plain)):
@@ -3077,6 +3177,9 @@ def data_layer_phase(torch, wrappers, root):
             torch, ctrainer, device_batch(first, 'cuda'),
             'CBGS SECOND multi-head', 19 + 18, 19).items():
         errors[name] = max(errors.get(name, 0.0), e)
+    whole_step_phase(torch, ctrainer, CFG_CBGS_SECOND,
+                     device_batch(first, 'cuda'), wrappers,
+                     'CBGS SECOND multi-head')
     launches, timing, on_card = loader_train_phase(
         torch, ctrainer, 'CBGS SECOND multi-head', cbatches,
         dict(zip(wrappers, (0, 1, 19 + 18, 19, 0))), warmup, CBGS_LOADER_STEPS)
@@ -3155,6 +3258,461 @@ def data_layer_phase(torch, wrappers, root):
     return runs, errors, trainer, batches, warmup
 
 
+# the plain sparse convolution's sums in other orders (its rulebook's
+# offsets and the weights' rows permuted alike): the same function, other
+# rounding. Reversed: each output's 27 terms summed last to first; rolled
+# by 9 and 18: the sum starting a third and two thirds of the way round
+REORDERINGS = (('offsets reversed', lambda rb, w: (rb.flip(-1), w.flip(0))),
+               ('offsets rolled by 9', lambda rb, w: (rb.roll(9, -1),
+                                                      w.roll(9, 0))),
+               ('offsets rolled by 18', lambda rb, w: (rb.roll(18, -1),
+                                                       w.roll(18, 0))))
+
+
+def rounding_units(torch, kernel, plain, args, n_terms):
+    """A kernel call against its plain version in units of float32
+    rounding: max |kernel - plain| / (eps x sum of |terms|) over the
+    outputs (the sum of |terms| is the plain version on |inputs|), beside
+    sqrt(n_terms), the size of a correct summation's error in those
+    units (a wrong row or offset reads as ~1 / eps of them)."""
+    with torch.no_grad():
+        got, want = kernel(*args), plain(*args)
+        scale = plain(*(a.abs() if torch.is_tensor(a) and a.is_floating_point()
+                        else a for a in args))
+    err = (got - want).abs()
+    return float((err / (2.0 ** -24 * scale).clamp(min=1e-30)).max()), \
+        n_terms ** 0.5
+
+
+def whole_step_phase(torch, trainer, cfg_file, batch, wrappers, label):
+    """The whole f32 step with the kernels against the plain step, on the
+    first two scenes of `batch` with the trainer's weights in float32.
+    Held: every K3 and K4 call of the kernels' step within sqrt(terms)
+    units of eps x sum|terms| of its plain version (``rounding_units``: a
+    correct sum in another order; a wrong row or offset reads as ~1/eps),
+    and the loss within 1e-6. Read, not held: each gradient leaf's
+    max|kernels - plain| against 3 x the plain step's own move under the
+    input points moved by one float32 ulp, a column of the voxel table's
+    live points at a time (as tests/test_torch_pointrcnn_train.py::
+    test_step_gradient_moves_with_one_ulp_of_input measures PointRCNN's),
+    and against 3 x its move under each of ``REORDERINGS`` on its own.
+    Returns the largest ratio to 3 x the one-ulp move."""
+    from lidardetection_tpu_torch.config import cfg_from_yaml_file
+    from lidardetection_tpu_torch.ops import sparse
+    from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
+        rulebook_conv, rulebook_conv_dw, rulebook_conv_dw_plain,
+        rulebook_conv_plain,
+    )
+    from lidardetection_tpu_torch.parallel.train_step import step_draw
+    from lidardetection_tpu_torch.train import Trainer
+    from lidardetection_tpu_torch.utils.precision import full_f32
+
+    cfg = cfg_from_yaml_file(cfg_file)
+    cfg.MODEL.COMPUTE_DTYPE = 'float32'
+    state = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+    twin = Trainer(cfg, device='cuda', state_dict=state, total_steps=4,
+                   seed=trainer.seed)
+    part = {k: v[:2] for k, v in batch.items()}
+
+    @contextlib.contextmanager
+    def reordered(reorder):
+        with plain_versions():
+            kept = sparse.sparse_conv_apply
+            sparse.sparse_conv_apply = lambda f, valid, rb, w, **kwargs: \
+                rulebook_conv_plain(f, *reorder(rb, w), valid)
+            try:
+                yield
+            finally:
+                sparse.sparse_conv_apply = kept
+
+    def gradient(b, ctx, plain):
+        for p in twin.model.parameters():
+            p.grad = None
+        for k in wrappers:
+            k.launches = 0
+        with ctx, full_f32():
+            tb = twin.model.loss(twin.model(b, step_draw(trainer.seed, 0,
+                                                         'cuda')))[1]
+            tb['loss'].backward()
+        launched = sum(k.launches for k in wrappers)
+        check((launched == 0) == plain, f'{label} f32 step '
+              f'({"plain" if plain else "kernels"}): {launched} launches')
+        return float(tb['loss'].detach()), {
+            k: p.grad.detach().clone() for k, p in twin.model.named_parameters()}
+
+    t0 = time.perf_counter()
+    with full_f32():
+        _, dws, convs = record_weight_gradients(twin, part)
+    worst_call = 0.0
+    for name, calls, kernel, plain in (
+            ('K3', convs, rulebook_conv, rulebook_conv_plain),
+            ('K4', dws, rulebook_conv_dw, rulebook_conv_dw_plain)):
+        units = []
+        for args in calls:
+            f, rb = args[0], args[1]
+            n = rb.shape[-1] * f.shape[-1] if name == 'K3' else \
+                rb.shape[0] * rb.shape[1]
+            got, most = rounding_units(torch, kernel, plain, args, n)
+            check(got <= most, f'{label} f32 {name} call: {got:.3g} units of '
+                  f'eps x sum|terms| from plain, above sqrt(terms) {most:.3g}')
+            units.append(got)
+            worst_call = max(worst_call, got / most)
+        print(f'{label} f32 step, its {len(calls)} {name} calls against their '
+              f'plain versions in units of eps x sum|terms|: largest '
+              f'{max(units):.3g}, {sum(u == 0 for u in units)} calls '
+              f'bit-equal', flush=True)
+    loss_k, kernels = gradient(part, contextlib.nullcontext(), False)
+    loss_p, plain = gradient(part, plain_versions(), True)
+    vox, npts = part['voxels'], part['voxel_num_points']
+    live = (torch.arange(vox.shape[2], device=vox.device) < npts[..., None]) \
+        & (torch.arange(vox.shape[1], device=vox.device)
+           < part['num_voxels'][:, None])[..., None]
+    ulp_move = {k: torch.zeros((), device='cuda') for k in plain}
+    move, whole = {}, {}
+    for col in range(vox.shape[-1]):
+        nudged = vox.clone()
+        up = torch.nextafter(nudged[..., col], torch.full_like(
+            nudged[..., col], float('inf')))
+        nudged[..., col] = torch.where(live, up, nudged[..., col])
+        _, g = gradient({**part, 'voxels': nudged}, plain_versions(), True)
+        whole['one ulp'] = max(whole.get('one ulp', 0.0),
+                               gradient_distance(g, plain)[2])
+        for k in plain:
+            ulp_move[k] = torch.maximum(ulp_move[k],
+                                        (g[k] - plain[k]).abs().max())
+    for name, reorder in REORDERINGS:
+        _, g = gradient(part, reordered(reorder), True)
+        whole[name] = gradient_distance(g, plain)[2]
+        move[name] = {k: (g[k] - plain[k]).abs().max() for k in plain}
+
+    def ratios(bound):
+        """Per leaf max|kernels - plain| / (3 x `bound`'s move)."""
+        out = {}
+        for k in plain:
+            gap, b = float((kernels[k] - plain[k]).abs().max()), \
+                3 * float(bound[k])
+            out[k] = gap / b if b > 0 else (0.0 if gap == 0 else np.inf)
+        return out
+
+    def reading(r):
+        worst = max(r, key=r.get)
+        return f'{sum(v > 1 for v in r.values())} of {len(r)} leaves above ' \
+            f'1, largest {r[worst]:.3g} ({worst})'
+
+    ulp_ratios = ratios(ulp_move)
+    order_ratios = {name: ratios(m) for name, m in move.items()}
+    shares, _, whole_gap = gradient_distance(kernels, plain)
+    print(f'{label} f32 step on a loader batch ({tuple(vox.shape)} voxel '
+          f'table): loss kernels {loss_k} vs plain {loss_p}; kernels vs '
+          f'plain: largest share of a leaf {max(shares.values()):.3g}, whole '
+          f'gradient {whole_gap:.3g} (relative L2); the plain whole gradient '
+          f'moves by { {k: round(v, 6) for k, v in whole.items()} } '
+          f'({time.perf_counter() - t0:.1f} s)', flush=True)
+    print(f'{label} f32 step, per leaf max|kernels - plain| / (3 x the plain '
+          f'step\'s move) (read, not held): under one ulp of the input points '
+          f'{reading(ulp_ratios)}; '
+          + '; '.join(f'under {name} {reading(r)}'
+                      for name, r in order_ratios.items()), flush=True)
+    for k in sorted(ulp_ratios, key=ulp_ratios.get, reverse=True)[:6]:
+        print(f'  {k}: max|kernels - plain| '
+              f'{float((kernels[k] - plain[k]).abs().max()):.3g}, 3 x the '
+              f'one-ulp move {3 * float(ulp_move[k]):.3g}, 3 x the move under '
+              + ', '.join(f'{name} {3 * float(m[k]):.3g}'
+                          for name, m in move.items())
+              + f'; max|plain| {float(plain[k].abs().max()):.3g}', flush=True)
+    check(abs(loss_k - loss_p) <= 1e-6 * abs(loss_p),
+          f'{label} f32 loss: kernels {loss_k} vs plain {loss_p}')
+    del twin
+    return max(ulp_ratios.values())
+
+
+def write_fork_trees(root):
+    """The fork's trees under `root`, timed: a PlusAI multiframe tree
+    (PLUSAI_SCENES scenes of PLUSAI_FRAMES single frames, stacked three at
+    a time by the port's gen_mot_dataset; the last scene in val) with the
+    infos and gt database of ``create_plusai_infos``, and a Mix tree
+    (MIX_FRAMES frames of a Livox tree and a fake-lidar tree mixed by
+    ``generate_mix_dataset``, MIX_VAL in val) with those of
+    ``create_livox_infos`` for mix_data_models/pointpillars_xy.yaml.
+    Returns the two roots."""
+    import os
+
+    from lidardetection_tpu_torch.config import cfg_from_yaml_file
+    from lidardetection_tpu_torch.datasets import synthetic_trees
+    from lidardetection_tpu_torch.datasets.livox.livox_dataset import (
+        create_livox_infos,
+    )
+    from lidardetection_tpu_torch.datasets.plusai.plusai_dataset import (
+        create_plusai_infos,
+    )
+
+    cores = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    plusai = synthetic_trees.write_plusai_tree(
+        root / 'plusai', PLUSAI_SCENES, PLUSAI_FRAMES, seed=SEED)
+    frames = [len(np.fromfile(f, np.float32)) // 4
+              for f in sorted((root / 'plusai').glob('mot_dataset/*/pointcloud/*'))]
+    stacked = [len(np.fromfile(f, np.float32)) // 5
+               for f in sorted(plusai.glob('*/pointcloud/*.bin'))]
+    t1 = time.perf_counter()
+    cfg = cfg_from_yaml_file(CFG_MULTIFRAME)
+    create_plusai_infos(cfg.DATA_CONFIG, list(cfg.CLASS_NAMES), plusai, plusai,
+                        workers=cores)
+    t2 = time.perf_counter()
+    print(f'PlusAI tree: {PLUSAI_SCENES} scenes of {PLUSAI_FRAMES} frames of '
+          f'{min(frames)}-{max(frames)} returns, {len(stacked)} stacked '
+          f'samples of {min(stacked)}-{max(stacked)} points, written and '
+          f'stacked in {t1 - t0:.2f} s; create_plusai_infos {t2 - t1:.2f} s',
+          flush=True)
+    mix = synthetic_trees.write_mix_tree(root / 'mix', MIX_FRAMES, MIX_VAL,
+                                         seed=SEED)
+    points = [len(np.fromfile(f)) // 3
+              for f in sorted((mix / 'pointcloud').iterdir())]
+    t3 = time.perf_counter()
+    mcfg = cfg_from_yaml_file(CFG_MIX_PP)
+    create_livox_infos(mcfg.DATA_CONFIG, list(mcfg.CLASS_NAMES), mix,
+                       workers=cores)
+    t4 = time.perf_counter()
+    print(f'Mix tree: {MIX_FRAMES} frames of {min(points)}-{max(points)} '
+          f'points (Livox frames and fake-lidar scenes) written in '
+          f'{t3 - t2:.2f} s; create_livox_infos {t4 - t3:.2f} s', flush=True)
+    return plusai, mix
+
+
+def train_eval_from_files(torch, label, cfg_file, root, per_step, per_batch,
+                          workers, logger, n_held=None):
+    """A fork config trained and evaluated from its tree at `root` through
+    ``build_dataloader`` (`workers` forked workers): with `n_held` (the
+    K3, K4 and K5 calls of a step) the kernel calls of a step on the
+    first batch held against their plain versions (``step_kernels_held``);
+    warm-up on workers x PREFETCH batches, FORK_LOADER_STEPS timed steps
+    with `per_step` launches each (``loader_train_phase``); precise-BN over
+    8 training batches; then ``eval_one_epoch`` over the val split with
+    `per_batch` launches a batch (K1 and K2 held bit for bit on its first
+    batch where it launches K1).
+    Returns the trainer, the launches of the training run and of the eval,
+    the loader timings, the kernel errors and the last batch on the card."""
+    from lidardetection_tpu_torch.datasets import PREFETCH, build_dataloader
+    from lidardetection_tpu_torch.engine.bn_recalibrate import (
+        recalibrate_bn_stats,
+    )
+    from lidardetection_tpu_torch.engine.evaluator import eval_one_epoch
+    from lidardetection_tpu_torch.ops.vfe_cuda import pillar_vfe
+    from lidardetection_tpu_torch.parallel.train_step import (
+        device_batch, make_eval_step,
+    )
+    from lidardetection_tpu_torch.train import Trainer
+
+    trainer = Trainer(cfg_file, device='cuda', seed=SEED, total_steps=1000)
+    cfg = trainer.cfg
+    classes = list(cfg.CLASS_NAMES)
+    size = train_batch_size(trainer)
+    warmup = workers * PREFETCH
+    n_batches = 1 + warmup + FORK_LOADER_STEPS
+    dataset, loader = build_dataloader(
+        cfg.DATA_CONFIG, classes, size, training=True, root_path=root,
+        workers=workers, logger=logger, model_cfg=cfg.MODEL, seed=SEED)
+    n_train = len(dataset)
+    dataset, loader = build_dataloader(
+        cfg.DATA_CONFIG, classes, size, training=True, root_path=root,
+        workers=workers, logger=logger, model_cfg=cfg.MODEL,
+        merge_all_iters_to_one_epoch=True,
+        total_epochs=-(-n_batches * size // n_train), seed=SEED)
+    check(len(loader) >= n_batches and loader.num_workers == workers,
+          f'{label} loader: {len(loader)} batches, {loader.num_workers} workers')
+    build = batch_build_ms(loader, repeats=1)  # no worker alive yet
+    t0 = time.perf_counter()
+    batches = iter(loader)
+    first = next(batches)
+    startup = (time.perf_counter() - t0) * 1e3
+    errors = {}
+    if n_held is not None:
+        errors = step_kernels_held(torch, trainer, device_batch(first, 'cuda'),
+                                   label, *n_held)
+    launches, timing, on_card = loader_train_phase(
+        torch, trainer, label, batches, per_step, warmup, FORK_LOADER_STEPS)
+    batches.close()  # the workers end
+    timing.update({'first_batch_ms': startup, 'batch_build_ms': build,
+                   'batch_size': size, 'train_frames': n_train})
+    print(f'{label} from files, {FORK_LOADER_STEPS} steps at B={size} after '
+          f'{warmup} of warm-up: iteration p50 {timing["p50_iteration_ms"]:.2f}'
+          f' ms (mean {timing["mean_iteration_ms"]:.2f}) = wait on the loader '
+          f'{timing["p50_wait_ms"]:.2f} ms (mean {timing["mean_wait_ms"]:.2f})'
+          f' + copy {timing["p50_copy_ms"]:.2f} ms + step '
+          f'{timing["p50_step_ms"]:.2f} ms (host clock); a batch built in one '
+          f'process {build:.2f} ms; the first batch {startup:.2f} ms',
+          flush=True)
+
+    # the running statistics of a short run lag the weights (a two-stage
+    # detector's proposals then blow up in eval mode): precise-BN over
+    # training batches from the tree first, as the train-to-AP gates do
+    t0 = time.perf_counter()
+    recalibrate_bn_stats(trainer.model, loader,
+                         lambda b: device_batch(b, 'cuda'), n_batches=8)
+    print(f'{label}: precise-BN over 8 training batches from files '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    zero_class_bias(torch, trainer.model)
+    test_set, test_loader = build_dataloader(
+        cfg.DATA_CONFIG, classes, size, training=False, root_path=root,
+        workers=workers, logger=logger, model_cfg=cfg.MODEL, seed=SEED)
+    if per_batch.get(pillar_vfe):
+        step = make_eval_step(trainer.model, cfg.MODEL.POST_PROCESSING,
+                              len(classes))
+        batch = next(iter(test_loader))
+        step(device_batch(batch, 'cuda'))  # warm-up
+        errors.update(eval_kernels_held(torch, step, batch))
+        torch.cuda.synchronize()
+    counted = CountedLoader(test_loader, per_batch)
+    result, annos = eval_one_epoch(trainer.model, counted,
+                                   cfg.MODEL.POST_PROCESSING, classes, logger)
+    frames = [info['point_cloud']['lidar_idx'] for info in test_set.plusai_infos]
+    ap = {k: round(float(v), 4) for k, v in result.items()
+          if k.endswith('moderate_R40')}
+    print(f'{label} eval from files: {len(frames)} val frames at B={size}, '
+          f'sec_per_example {result["sec_per_example"]:.4f} s (host clock), '
+          f'largest num_voxels {counted.largest_num_voxels}, live detections '
+          f'{sum(len(a["name"]) for a in annos[:len(frames)])}, moderate R40 '
+          f'AP {ap} (random weights), recall '
+          f'{ {k: v for k, v in result.items() if k.startswith("recall/")} }',
+          flush=True)
+    check([a['frame_id'] for a in annos[:len(frames)]] == frames,
+          f'{label} eval from files: one anno per val frame')
+    check(all(np.isfinite(a['boxes_lidar']).all() for a in annos)
+          and 'Car_3d/moderate_R40' in result and 'Truck_3d/moderate_R40'
+          in result, f'{label} eval from files: finite boxes, the KITTI '
+          'protocol over Car and Truck')
+    timing['sec_per_example'] = result['sec_per_example']
+    return trainer, launches, counted.total, timing, errors, on_card
+
+
+def distributed_phase(torch, trainer, batch, test_loader, logger):
+    """A one-process NCCL group (``tcp://localhost``, world size 1, rank 0)
+    against no group, from the trainer's state: the group's training step
+    on `batch` (BatchNorm's sums, the loss normalisers and the gradient
+    average through NCCL, parallel/dist.py) against two bare steps, every
+    parameter, BatchNorm statistic and Adam moment bit for bit where the
+    two bare steps agree; the group's eval of `test_loader` (the annos and
+    the recall counters through ``merge_results_dist``) against the bare
+    eval, every anno and result key equal. The state is put back."""
+    import copy
+    import socket
+
+    from lidardetection_tpu_torch.engine.evaluator import eval_one_epoch
+    from lidardetection_tpu_torch.parallel import dist
+
+    cfg = trainer.cfg
+    classes = list(cfg.CLASS_NAMES)
+    saved = copy.deepcopy(trainer.state.state_dict())
+
+    def step():
+        trainer.state.load_state_dict(copy.deepcopy(saved))
+        tb = trainer.step(batch)
+        state = trainer.state.state_dict()
+        out = {f'model/{k}': v.clone() for k, v in state['model'].items()}
+        for kind in ('mu', 'nu'):
+            out.update({f'{kind}/{k}': v.clone()
+                        for k, v in state['optimizer'][kind].items()})
+        return {k: float(v) for k, v in tb.items()}, out
+
+    def evaluate(**kwargs):
+        trainer.state.load_state_dict(copy.deepcopy(saved))
+        return eval_one_epoch(trainer.model, test_loader,
+                              cfg.MODEL.POST_PROCESSING, classes, logger,
+                              **kwargs)
+
+    bare = [step(), step()]
+    bare_result, bare_annos = evaluate()
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    torch.distributed.init_process_group(
+        'nccl', init_method=f'tcp://localhost:{port}', world_size=1, rank=0)
+    try:
+        check(dist.in_group() and dist.get_world_size() == 1,
+              'a one-process NCCL group')
+        grouped = step()
+        with tempfile.TemporaryDirectory(prefix='chip_smoke_eval_') as tmp:
+            result, annos = evaluate(result_dir=tmp)
+            check(not (Path(tmp) / 'tmpdir').exists(),
+                  'merge_results_dist removed the part files')
+    finally:
+        torch.distributed.destroy_process_group()
+    trainer.state.load_state_dict(saved)
+    (tb0, leaves0), (tb1, leaves1) = bare
+    tb_g, leaves_g = grouped
+    unstable = {k for k in leaves0 if not torch.equal(leaves0[k], leaves1[k])}
+    differ = [k for k in leaves0 if not torch.equal(leaves0[k], leaves_g[k])]
+    n = len(test_loader.dataset.plusai_infos)
+    same_annos = len(annos) == n and all(
+        sorted(a) == sorted(b) and all(
+            np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a)
+        for a, b in zip(annos, bare_annos[:n]))
+    same_result = set(result) == set(bare_result) and all(
+        result[k] == bare_result[k] for k in result if k != 'sec_per_example')
+    print(f'one-process NCCL group: its step vs the bare step, '
+          f'{len(leaves0) - len(differ)} of {len(leaves0)} leaves bit-equal '
+          f'({len(unstable)} differ between two bare steps); loss '
+          f'{tb_g["loss"]} vs {tb0["loss"]}; its eval through '
+          f'merge_results_dist: {len(annos)} annos (the bare eval '
+          f'{len(bare_annos)}, its padding cut), equal {same_annos}, result '
+          f'keys equal {same_result}', flush=True)
+    check(tb_g == tb0 or tb0 != tb1,
+          "the group step's loss terms equal the bare step's")
+    check(set(differ) <= unstable, f'the group step differs from the bare '
+          f'step in leaves the bare steps agree on: '
+          f'{sorted(set(differ) - unstable)[:8]}')
+    check(same_annos and same_result, 'the group eval equals the bare eval')
+
+
+def fork_data_phase(torch, wrappers, root):
+    """Training and evaluation of the fork's configs from trees on disk
+    (``write_fork_trees``; forked workers, min(8, cores) of them):
+    livox_models/pv_rcnn_multiframe.yaml from the PlusAI tree (23 K3, 12
+    K4, 1 K2 and 5 K5 a step, every kernel call of a step on its first
+    batch held against its plain version; 12 K3, 1 K2 and 5 K5 an eval
+    batch) and mix_data_models/pointpillars_xy.yaml from the Mix tree (1 K2
+    a step; 1 K1 and 1 K2 an eval batch, held bit for bit on its first);
+    then the Mix trainer in a one-process NCCL group against no group
+    (``distributed_phase``). Returns the launches of each run and the
+    largest kernel errors against the plain versions."""
+    import logging
+    import os
+
+    from lidardetection_tpu_torch.datasets import build_dataloader
+
+    workers = min(8, os.cpu_count() or 1)
+    plusai, mix = write_fork_trees(root)
+    logger = logging.getLogger('chip_smoke.fork')
+    runs, errors, loader_json = {}, {}, {}
+    for label, cfg_file, tree, per_step, per_batch, n_held in (
+            ('PV-RCNN multiframe', CFG_MULTIFRAME, plusai, (0, 1, 23, 12, 5),
+             (0, 1, 12, 0, 5), (23, 12, 5)),
+            ('Mix PointPillar', CFG_MIX_PP, mix, (0, 1, 0, 0, 0),
+             (1, 1, 0, 0, 0), None)):
+        print(f'-- {label} from files --', flush=True)
+        trainer, train_runs, eval_runs, timing, errs, on_card = \
+            train_eval_from_files(torch, label, cfg_file, tree,
+                                  dict(zip(wrappers, per_step)),
+                                  dict(zip(wrappers, per_batch)), workers,
+                                  logger, n_held)
+        runs[f'{label} training from files'] = train_runs
+        runs[f'{label} eval from files'] = eval_runs
+        loader_json[label] = timing
+        for name, e in errs.items():
+            errors[name] = max(errors.get(name, 0.0), e)
+    print(json.dumps({'fork_loader': loader_json}), flush=True)
+
+    print('-- distributed: a one-process NCCL group --', flush=True)
+    cfg = trainer.cfg
+    _, test_loader = build_dataloader(
+        cfg.DATA_CONFIG, list(cfg.CLASS_NAMES), 2, training=False,
+        root_path=mix, workers=0, logger=logger, model_cfg=cfg.MODEL,
+        seed=SEED)
+    distributed_phase(torch, trainer, on_card, test_loader, logger)
+    return runs, errors
+
+
 def main():
     import torch
 
@@ -3192,6 +3750,12 @@ def main():
     print(f'timing floor: a one-element add_ reads '
           f'{cuda_ms(lambda: tiny.add_(1), torch):.4f} ms', flush=True)
 
+    if sys.argv[1:] == ['--deterministic-cost']:
+        from lidardetection_tpu_torch.train import Trainer
+        deterministic_cost(torch, lambda cfg_file: Trainer(
+            cfg_file, device='cuda', seed=SEED, total_steps=1000))
+        print(card, flush=True)
+        return 0
     from lidardetection_tpu_torch.ops.scatter_cuda import scatter_rows
     from lidardetection_tpu_torch.ops.select_cuda import ball_select
     from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
@@ -3376,6 +3940,7 @@ def main():
         CFG_PVRCNN, SEED + 600, dict(zip(wrappers, (0, 1, 12 + 11, 12, 5))),
         967.02, schedule_steps=1000)
     pvrcnn_step_split(torch, trainer, batches[-1])
+    reproducibility_phase(torch, trainer, batches[-1])
     compare_train_phase(torch, trainer, CFG_PVRCNN, batches[-1], wrappers)
     trainer_pvrcnn, batch_pvrcnn = trainer, batches[-1]
     del trainer, batches
@@ -3437,6 +4002,7 @@ def main():
         CFG_MULTIFRAME, SEED + 1400,
         dict(zip(wrappers, (0, 1, 12 + 11, 12, 5))), None, schedule_steps=1000)
     tracking_phase(torch, trainer, batches[-1])
+    reproducibility_phase(torch, trainer, batches[-1])
     del trainer, batches
 
     print('== Part-A2 free training ==', flush=True)
@@ -3475,6 +4041,14 @@ def main():
         refill_files = data_layer_phase(torch, wrappers, Path(data_root.name))
     print(f'data layer phase: {time.perf_counter() - t0:.1f} s', flush=True)
 
+    print('== the fork\'s datasets and the process group ==', flush=True)
+    t0 = time.perf_counter()
+    fork_root = tempfile.TemporaryDirectory(prefix='chip_smoke_fork_')
+    runs_from_fork, errors_from_fork = fork_data_phase(
+        torch, wrappers, Path(fork_root.name))
+    fork_root.cleanup()
+    print(f'fork data phase: {time.perf_counter() - t0:.1f} s', flush=True)
+
     print('== under the profiler ==', flush=True)
     scatter_launch_count(torch, *scatter_case)
 
@@ -3503,7 +4077,7 @@ def main():
         profile_run(torch, f'{each.cfg["MODEL"]["NAME"]} training step',
                     lambda: each.step(batch))
 
-    # launches: the sum over the twenty-seven main paths' runs, each
+    # launches: the sum over the thirty-one main paths' runs, each
     # counted from 0
     runs = {'PointPillar serving': launches, 'SECONDNet serving': launches_second,
             'PVRCNN serving': launches_pvrcnn,
@@ -3526,7 +4100,8 @@ def main():
             'CBGS PointPillar multi-head training': launches_train_cbgs_pp,
             'PV-RCNN multiframe training': launches_train_multiframe,
             'PartA2-free training': launches_train_free,
-            'SECOND multi-head eval': launches_eval_mh, **runs_from_files}
+            'SECOND multi-head eval': launches_eval_mh, **runs_from_files,
+            **runs_from_fork}
     # Part-A²'s per-layer rows on a line of their own, its totals in the
     # kernels line
     parta2_rows = {'K3 request': k3_parta2.pop('layers'),
@@ -3551,9 +4126,10 @@ def main():
                             k4_cbgs['max_abs_err'])
     # K1 and K2 on an eval batch from the loader, K2-K4 on a CBGS training
     # batch from it
-    for k in (k1, k2, k3, k4):
+    for k in (k1, k2, k3, k4, k5):
         k['max_abs_err'] = max(k['max_abs_err'],
-                               errors_from_files.get(k['name'], 0.0))
+                               errors_from_files.get(k['name'], 0.0),
+                               errors_from_fork.get(k['name'], 0.0))
     kernels = [k1, k2, k3, k4, k5]
     for k in kernels:
         k['launches'] = sum(run.get(k['name'], 0) for run in runs.values())

@@ -88,13 +88,16 @@ def raw_point_capacity(cfg):
     PV-RCNN's VSA, or a point backbone, PointRCNN's PointNet2MSG:
     ``points`` and ``num_points`` padded to it, as the JAX package's data
     processor pads them), else None: Part-A²'s point head reads the UNet's
-    voxel centres, not the raw points."""
+    voxel centres, not the raw points. 0 where the model reads them and
+    the config sets no MAX_POINTS (Livox's and Mix's PV-RCNN): each batch
+    is padded to its largest cloud (the JAX package, padding nothing
+    there, cannot stack such clouds at B > 1)."""
     model = cfg['MODEL']
     reads_points = model.get('PFE') or (
         model.get('BACKBONE_3D') and model['BACKBONE_3D']['NAME'] == 'PointNet2MSG')
     if not reads_points:
         return None
-    return int(cfg['DATA_CONFIG']['MAX_POINTS'])
+    return int(cfg['DATA_CONFIG'].get('MAX_POINTS', 0))
 
 
 def grid_size_from_range(point_cloud_range, voxel_size):

@@ -37,14 +37,19 @@ PREFETCH = 2  # batches each worker builds ahead (the JAX loader's prefetch)
 DATASETS = {
     'KittiDataset': 'kitti.kitti_dataset',
     'NuScenesDataset': 'nuscenes.nuscenes_dataset',
+    'PlusAIDataset': 'plusai.plusai_dataset',
+    'PlusAIMultiframeDataset': 'plusai.plusai_dataset',
+    'LivoxDataset': 'livox.livox_dataset',
+    'LivoxMultiFrameDataset': 'livox.livox_dataset',
+    'MixDataset': 'mix_data.mix_dataset',
 }
 
 
 def dataset_class(name):
     """The dataset class a DATA_CONFIG's DATASET names."""
     if name not in DATASETS:
-        raise NotImplementedError(
-            f'{name} is not ported yet: see ROADMAP.md queue 1, "Data layer"')
+        raise NotImplementedError(f'no dataset {name}: the datasets are '
+                                  f'{sorted(DATASETS)}')
     module = importlib.import_module(f'.{DATASETS[name]}', __name__)
     return getattr(module, name)
 

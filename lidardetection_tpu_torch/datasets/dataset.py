@@ -25,7 +25,7 @@ import numpy as np
 from ..config import dataset_info, raw_point_capacity
 from ..ops.sparse_plan import build_host_rulebooks, config_plan
 from ..utils.common import keep_arrays_by_name
-from .processor.data_processor import DataProcessor
+from .processor.data_processor import DataProcessor, pad_clouds
 from .processor.point_feature_encoder import PointFeatureEncoder
 
 # keys a batch keeps as they are, not stacked (dataset.py:163-166)
@@ -168,13 +168,17 @@ class DatasetTemplate:
     def collate_batch(batch_list):
         """Stack fixed-shape samples into a batch dict. Points that were
         not padded (no ``num_points``: the model does not read them) are
-        left out."""
+        left out; clouds kept whole (a config with no MAX_POINTS) are
+        padded to the batch's largest."""
         keys = batch_list[0].keys()
         ret = {}
         for key in keys:
             if key == 'points' and 'num_points' not in keys:
                 continue
             vals = [s[key] for s in batch_list]
+            if key == 'points':
+                ret[key] = pad_clouds(vals)[0]
+                continue
             if key in HOST_KEYS:
                 ret[key] = np.asarray(vals) if key != 'calib' else vals
                 continue

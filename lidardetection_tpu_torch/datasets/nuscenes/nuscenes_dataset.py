@@ -175,8 +175,8 @@ class NuScenesDataset(DatasetTemplate):
             return ('nuscenes-devkit not installed; install it for official '
                     'NDS/mAP evaluation (falling back to no metric)'), {}
         raise NotImplementedError(
-            'the official NuScenes evaluation is not ported yet: see '
-            'ROADMAP.md queue 1, "Data layer"')
+            'the official NuScenes evaluation is not ported: see '
+            'ROADMAP.md section 1, "Not queued"')
 
     def _kitti_style_eval(self, det_annos, class_names):
         """The official KITTI protocol over the NuScenes boxes, in a

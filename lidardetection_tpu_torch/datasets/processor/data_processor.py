@@ -102,6 +102,16 @@ def pad_points(points, max_points):
     return out, np.int32(n)
 
 
+def pad_clouds(clouds, max_points=0):
+    """points (B, M, C) float32, each cloud's first M points then zeros,
+    and num_points (B,) int32: M is `max_points`, or the largest cloud's
+    length where it is 0 (a config with no MAX_POINTS)."""
+    m = max_points or max(len(c) for c in clouds)
+    padded, num = zip(*(pad_points(np.asarray(c, np.float32), m)
+                        for c in clouds))
+    return np.stack(padded), np.asarray(num, np.int32)
+
+
 def process_points(points, processor_cfgs, point_cloud_range, training, rng):
     """A cloud through a point-based config's DATA_PROCESSOR chain in its
     order (mask, sample, shuffle) in the split's mode; `rng` draws the
@@ -126,7 +136,9 @@ class DataProcessor:
     """A config's DATA_PROCESSOR entries, chained in their order (JAX
     :16-137). ``forward(data_dict, rng)`` runs them on one sample; `rng`
     draws the shuffle and the sample. `max_points`, when given, pads the
-    raw points to it and adds ``num_points``."""
+    raw points to it and adds ``num_points`` (0: no padding, the count
+    added all the same, and ``collate_batch`` pads a batch's clouds to its
+    largest)."""
 
     def __init__(self, processor_configs, point_cloud_range, training,
                  max_points=None):
@@ -207,5 +219,5 @@ class DataProcessor:
             data_dict['points'] = points
         else:
             data_dict['points'], data_dict['num_points'] = pad_points(
-                points, self.max_points)
+                points, self.max_points or len(points))
         return data_dict

@@ -19,6 +19,21 @@ line, a flat road plane, the images as black PNGs written with zlib);
 creation would write (``gt_boxes`` (G, 9) with velocities, one NaN among
 them, ``gt_names``, ``num_lidar_pts``, the sweeps with their transforms
 and time lags).
+
+The fork's trees are highway scenes ahead of a moving truck, the ground
+0.5 m below the lidar frame's origin, at the configs' ranges: a sensor
+may see a sector only (``azimuth_deg``), stand higher (``height``) and
+have its walls farther (``wall_m``).
+``write_plusai_tree`` writes single frames with odometry and uuid-keyed
+obstacles (``mot_dataset/<scene>``) and stacks them into the multiframe
+tree with the port's ``gen_mot_dataset`` (``PLUSAI``: 3 x ~50k returns a
+sample in [2, 162] x [-16, 16] m); ``write_livox_tree`` a Livox tree
+(``LIVOX``: 64k returns a frame in [0, 152] x [-16, 16] m, fine class
+names); ``write_mix_tree`` a Livox tree and a fake-lidar tree (blank
+scenes, their ground planes, an object database, ``generate_fake_lidar``)
+mixed by the port's ``generate_mix_dataset``. Each writes the split lists
+the loaders read; the infos come from ``create_plusai_infos`` and
+``create_livox_infos``.
 """
 
 import pickle
@@ -43,25 +58,41 @@ OBJECT_SIZE = {  # (dx, dy, dz)
     'Cyclist': (1.76, 0.6, 1.73), 'car': (4.6, 1.95, 1.73),
     'truck': (6.9, 2.5, 2.8), 'pedestrian': (0.7, 0.7, 1.75),
     'barrier': (0.5, 2.5, 1.0), 'traffic_cone': (0.4, 0.4, 1.1),
-    'bicycle': (1.7, 0.6, 1.3),
+    'bicycle': (1.7, 0.6, 1.3), 'Truck': (10.7, 2.75, 3.8),
+    'bus': (11.0, 2.9, 3.2), 'police_car': (4.9, 1.9, 1.6),
 }
+# the fork's sensors: forward sectors of long-range lidars on a truck
+PLUSAI = {'elevation_deg': (-14.0, 2.0), 'beams': 64, 'azimuth_steps': 800,
+          'azimuth_deg': (-60.0, 60.0), 'height': 2.5, 'wall_m': (60.0, 170.0)}
+LIVOX = {'elevation_deg': (-12.5, 12.5), 'beams': 64, 'azimuth_steps': 1000,
+         'azimuth_deg': (-41.0, 41.0), 'height': 2.0, 'wall_m': (40.0, 160.0)}
+FORK_GROUND = -0.5  # the ground's z in the fork's lidar frames
+HIGHWAY_X, HIGHWAY_Y = (8.0, 145.0), (-10.0, 10.0)  # where boxes are placed
+EGO_SPEED = 25.0  # m/s, the PlusAI truck's
 
 
 def lidar_scan(rng, sensor, boxes=np.zeros((0, 7)), points_per_box=6000.0):
-    """One scan from a sensor at the origin, SENSOR_HEIGHT above the
-    ground: (N, 5) float32, x, y, z, intensity and the beam index.
+    """One scan from a sensor at the origin, SENSOR_HEIGHT (or the
+    sensor's ``height``) above the ground: (N, 5) float32, x, y, z,
+    intensity and the beam index.
     The returns inside `boxes` (G, 7) are replaced by points just inside
     their faces, about `points_per_box` / distance of them."""
     lo, hi = np.deg2rad(sensor['elevation_deg'])
     elev = np.linspace(lo, hi, sensor['beams'])
-    phi = np.linspace(-np.pi, np.pi, sensor['azimuth_steps'], endpoint=False)
+    if 'azimuth_deg' in sensor:
+        a_lo, a_hi = np.deg2rad(sensor['azimuth_deg'])
+        phi = np.linspace(a_lo, a_hi, sensor['azimuth_steps'])
+    else:
+        phi = np.linspace(-np.pi, np.pi, sensor['azimuth_steps'],
+                          endpoint=False)
     e, p = np.meshgrid(elev, phi, indexing='ij')
     beam = np.broadcast_to(np.arange(sensor['beams'])[:, None], e.shape)
     sectors = 36
-    wall = rng.uniform(15.0, 90.0, sectors)[
+    wall = rng.uniform(*sensor.get('wall_m', (15.0, 90.0)), sectors)[
         ((p + np.pi) / (2 * np.pi) * sectors).astype(int) % sectors]
     # horizontal distance to the ground or to the sector's wall
-    ground = np.where(e < 0, SENSOR_HEIGHT / np.tan(-np.minimum(e, -1e-6)),
+    height = sensor.get('height', SENSOR_HEIGHT)
+    ground = np.where(e < 0, height / np.tan(-np.minimum(e, -1e-6)),
                       np.inf)
     d = np.minimum(ground, wall) * (1.0 + rng.randn(*e.shape) * 0.003)
     pts = np.stack([d * np.cos(p), d * np.sin(p), d * np.tan(e),
@@ -87,9 +118,11 @@ def lidar_scan(rng, sensor, boxes=np.zeros((0, 7)), points_per_box=6000.0):
     return pts.astype(np.float32)
 
 
-def place_boxes(rng, names, x_range, y_range, in_view=None):
-    """(G, 7) boxes of the classes `names` on the ground, apart from each
-    other; `in_view(x, y)` rejects centres outside a field of view."""
+def place_boxes(rng, names, x_range, y_range, in_view=None,
+                ground=-SENSOR_HEIGHT, heading=None):
+    """(G, 7) boxes of the classes `names` on the ground (at z `ground`),
+    apart from each other; `in_view(x, y)` rejects centres outside a field
+    of view; headings uniform, or drawn by `heading(rng)`."""
     boxes = []
     for name in names:
         dx, dy, dz = OBJECT_SIZE[name]
@@ -101,8 +134,9 @@ def place_boxes(rng, names, x_range, y_range, in_view=None):
                                                      + np.hypot(b[3], b[4])) / 2 + 1.0
                    for b in boxes):
                 break
-        boxes.append([cx, cy, -SENSOR_HEIGHT + dz / 2, dx, dy, dz,
-                      rng.uniform(-np.pi, np.pi)])
+        boxes.append([cx, cy, ground + dz / 2, dx, dy, dz,
+                      rng.uniform(-np.pi, np.pi) if heading is None
+                      else heading(rng)])
     return np.asarray(boxes, np.float64).reshape(-1, 7)
 
 
@@ -228,3 +262,147 @@ def write_nuscenes_tree(root, num_train, num_val, sweeps=9, seed=0,
         with open(base / f'nuscenes_infos_{max_sweeps}sweeps_{split}.pkl', 'wb') as f:
             pickle.dump(part, f)
     return base
+
+
+def _highway_heading(rng):
+    return rng.normal(0.0, 0.05)  # along the road
+
+
+def fork_scan(rng, sensor, boxes=np.zeros((0, 7))):
+    """A fork sensor's scan with the ground at FORK_GROUND: (N, 4) float32
+    x, y, z, intensity; `boxes` (G, 7) in the same frame."""
+    lift = sensor['height'] + FORK_GROUND
+    boxes = np.asarray(boxes, np.float64).reshape(-1, 7).copy()
+    boxes[:, 2] -= lift
+    scan = lidar_scan(rng, sensor, boxes)[:, :4]
+    scan[:, 2] += lift
+    return scan
+
+
+def write_split_lists(root, ids, num_val):
+    """``ImageSets/{train,val}.txt`` under `root`: the last `num_val` of
+    `ids` in val, the others in train."""
+    root = Path(root)
+    (root / 'ImageSets').mkdir(parents=True, exist_ok=True)
+    cut = len(ids) - num_val
+    for split, part in (('train', ids[:cut]), ('val', ids[cut:])):
+        (root / 'ImageSets' / f'{split}.txt').write_text('\n'.join(part))
+
+
+def write_plusai_tree(root, num_scenes, frames_per_scene, seed=0,
+                      sensor=PLUSAI, objects=('Car',) * 6 + ('Truck',) * 3):
+    """A PlusAI multiframe tree under `root`: per scene, `frames_per_scene`
+    single frames 0.1 s apart (``mot_dataset/<scene>/pointcloud/*.bin``,
+    float32 x, y, z, intensity in the truck's frame; ``label/*.pkl`` with
+    the timestamp, the odometry pose and the uuid-keyed obstacle list) of
+    a truck driving at EGO_SPEED along x among `objects` moving along
+    the road, stacked three at a time by ``gen_mot_dataset.
+    prepare_multiframe_dataset`` into ``multiframe/<scene>``; the last
+    scene in val. Returns the multiframe tree's root."""
+    from .plusai.mot_dataset.gen_mot_dataset import prepare_multiframe_dataset
+
+    root = Path(root)
+    dt = 0.1
+    scenes = [f'scene_{s:03d}' for s in range(num_scenes)]
+    for s, scene in enumerate(scenes):
+        rng = np.random.RandomState(seed * 1000 + s)
+        base = root / 'mot_dataset' / scene
+        (base / 'pointcloud').mkdir(parents=True, exist_ok=True)
+        (base / 'label').mkdir(parents=True, exist_ok=True)
+        start = place_boxes(rng, objects, HIGHWAY_X, HIGHWAY_Y,
+                            ground=FORK_GROUND, heading=_highway_heading)
+        speed = rng.uniform(15.0, 30.0, len(start))
+        for i in range(frames_per_scene):
+            ego = EGO_SPEED * dt * i
+            boxes = start.copy()  # in the frame of the truck at frame i
+            boxes[:, 0] += speed * np.cos(start[:, 6]) * dt * i - ego
+            boxes[:, 1] += speed * np.sin(start[:, 6]) * dt * i
+            fork_scan(rng, sensor, boxes).tofile(
+                base / 'pointcloud' / f'{i:06d}.bin')
+            obstacles = [{
+                'uuid': f'{scene}-{k}',
+                'position': {'x': b[0], 'y': b[1], 'z': b[2]},
+                'direction': {'x': np.cos(b[6]), 'y': np.sin(b[6])},
+                'velocity': {'x': v * np.cos(b[6]) - EGO_SPEED,
+                             'y': v * np.sin(b[6]), 'z': 0.0},
+                'size': [b[3], b[4], b[5]], 'is_front_car': False,
+            } for k, (b, v) in enumerate(zip(boxes, speed))]
+            with open(base / 'label' / f'{i:06d}.pkl', 'wb') as f:
+                pickle.dump({'timestamp': 1000.0 + dt * i,
+                             'trans': np.array([ego, 0.0, 0.0]),
+                             'quat': np.array([0.0, 0.0, 0.0, 1.0]),
+                             'bag_name': scene, 'frame_index': i,
+                             'obstacle_list': obstacles}, f)
+    prepare_multiframe_dataset(root)
+    multiframe = root / 'multiframe'
+    ids = {scene: [f'{scene}/pointcloud/{p.name}' for p in
+                   sorted((multiframe / scene / 'pointcloud').iterdir())]
+           for scene in scenes}
+    write_split_lists(multiframe, [i for s in scenes for i in ids[s]],
+                      len(ids[scenes[-1]]))
+    return multiframe
+
+
+def write_livox_tree(root, num_frames, num_val, seed=0, sensor=LIVOX,
+                     objects=('car', 'car', 'police_car', 'car', 'truck',
+                              'bus', 'car', 'truck'), columns=4):
+    """A Livox tree at `root`: ``pointcloud/<id>.bin`` (float64, x, y, z,
+    intensity; x, y, z with `columns` 3), ``label/<id>.pkl`` (the fine
+    class names, ``box3d_lidar``) and the split lists, the last `num_val`
+    frames in val. Returns the ids."""
+    root = Path(root)
+    (root / 'pointcloud').mkdir(parents=True, exist_ok=True)
+    (root / 'label').mkdir(parents=True, exist_ok=True)
+    ids = [f'{i:06d}' for i in range(num_frames)]
+    for k, fid in enumerate(ids):
+        rng = np.random.RandomState(seed * 1000 + k)
+        boxes = place_boxes(rng, objects, HIGHWAY_X, HIGHWAY_Y,
+                            ground=FORK_GROUND, heading=_highway_heading)
+        scan = fork_scan(rng, sensor, boxes)
+        scan[:, :columns].astype(np.float64).tofile(
+            root / 'pointcloud' / f'{fid}.bin')
+        with open(root / 'label' / f'{fid}.pkl', 'wb') as f:
+            pickle.dump([{'name': n, 'box3d_lidar': b}
+                         for n, b in zip(objects, boxes)], f)
+    write_split_lists(root, ids, num_val)
+    return ids
+
+
+def write_mix_tree(root, num_frames, num_val, seed=0):
+    """A Mix tree under `root`, the fork's pipeline end to end with the
+    port's generators: a Livox tree (``root/livox/training``); a labelled
+    highway tree of x, y, z clouds with Car and Truck names
+    (``root/objects``) and its object database (``gen_gt_database``);
+    two object-free scans as ``.txt`` with their ground planes
+    (``estimate_ground_plane_batch``); a fake-lidar tree from them
+    (``generate_fake_lidar``, ``root/fake/training``); the two mixed into
+    ``root/mix/training`` (``generate_mix_dataset``), whose last `num_val`
+    frames are the val split. Returns the mixed tree's root (a config's
+    DATA_PATH)."""
+    from .mix_data.gen_mix_dataset import generate_mix_dataset
+    from .plusai.fake_lidar_dataset import (
+        create_groundtruth_database, estimate_ground_plane_batch,
+        generate_fake_lidar,
+    )
+
+    root = Path(root)
+    write_livox_tree(root / 'livox' / 'training', num_frames, 0, seed=seed)
+    objects = ('Car', 'Car', 'Car', 'Truck', 'Truck')
+    write_livox_tree(root / 'objects', 4, 0, seed=seed + 1, objects=objects,
+                     columns=3)
+    create_groundtruth_database(root / 'objects')
+    blank = root / 'blank'
+    blank.mkdir(parents=True, exist_ok=True)
+    for k in range(2):
+        rng = np.random.RandomState(seed * 1000 + 500 + k)
+        np.savetxt(blank / f'scene{k}.txt',
+                   fork_scan(rng, LIVOX)[:, :3].astype(np.float64), fmt='%.4f')
+    estimate_ground_plane_batch(blank)
+    generate_fake_lidar(num_frames, len(objects) + 2,
+                        gt_data_path=root / 'objects', blank_scene_path=blank,
+                        output_path=root / 'fake' / 'training', seed=seed)
+    mix = root / 'mix' / 'training'
+    ids = generate_mix_dataset(root / 'livox', root / 'fake', root / 'mix',
+                               num_frames, seed=seed)
+    write_split_lists(mix, ids, num_val)
+    return mix

@@ -5,8 +5,11 @@ run through the eval step (``parallel/train_step.py::make_eval_step``); the kept
 host as numpy (the rows that ``pred_mask`` marks: the multi-class NMS of
 the multi-head detectors leaves gaps between them), become KITTI annos
 through the dataset's ``generate_prediction_dicts`` and are scored by its
-``evaluation`` (the official protocol). A single process only: the distributed merge of the
-JAX package (``merge_results_dist``) is not ported.
+``evaluation`` (the official protocol). In a process group each rank
+evaluates its loader shard; ``parallel/dist.py::merge_results_dist``
+gathers the annos (cut to the dataset's length) and the recall counters
+on the main process, which scores them, as the JAX package's does
+(evaluator.py:24-75); the other ranks return ``({}, [])``.
 """
 
 import pickle
@@ -15,10 +18,10 @@ from pathlib import Path
 
 import torch
 
+from ..parallel.dist import (
+    get_world_size, in_group, is_main_process, merge_results_dist,
+)
 from ..parallel.train_step import device_batch, make_eval_step
-
-DISTRIBUTED_NOT_PORTED = ('evaluation across processes is not ported yet: '
-                          'see ROADMAP.md queue 1, "Distributed"')
 
 
 def _to_host(tree):
@@ -37,11 +40,10 @@ def eval_one_epoch(model, loader, post_cfg, class_names, logger,
     gt count), the protocol's AP keys (``Car_3d/moderate_R40``, ...) and
     ``sec_per_example``; one anno per frame, each with ``num_candidates``,
     the live rows that entered NMS. Writes ``result.pkl`` (the annos) under
-    `result_dir` when one is given.
+    `result_dir` when one is given. In a process group the ranks' parts
+    meet under `result_dir`/tmpdir, a directory every rank sees; the merged
+    annos are cut to the dataset's length.
     """
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(DISTRIBUTED_NOT_PORTED)
     dataset = loader.dataset
     device = next(model.parameters()).device
     step_fn = make_eval_step(model, post_cfg, len(class_names))
@@ -63,6 +65,24 @@ def eval_one_epoch(model, loader, post_cfg, class_names, logger,
     sec_per_example = (time.time() - t0) / max(n_samples, 1)
     logger.info('eval: %d samples, %.4f sec/example', n_samples,
                 sec_per_example)
+
+    if in_group():
+        world = get_world_size()
+        if result_dir is None:
+            raise ValueError('evaluation in a process group needs a '
+                             'result_dir that every rank sees')
+        tmpdir = Path(result_dir) / 'tmpdir'
+        # the recall counters first, in a directory inside the annos': the
+        # annos' merge then removes both
+        merged = merge_results_dist([sorted(recall_totals.items())], world,
+                                    tmpdir / 'recall')
+        det_annos = merge_results_dist(det_annos, len(dataset), tmpdir)
+        if not is_main_process():
+            return {}, []
+        recall_totals = {}
+        for items in merged:
+            for k, v in items:
+                recall_totals[k] = recall_totals.get(k, 0) + v
 
     ret_dict = {}
     gt = max(recall_totals.get('gt', 0), 1)

@@ -2,7 +2,9 @@
 
 The loop feeds batches to the train step and logs; checkpoints are saved
 per epoch with rotation, and a run started on a directory that holds
-checkpoints resumes from the newest.
+checkpoints resumes from the newest. In a process group every rank steps
+on its loader shard and only the main process writes the checkpoints
+(engine/trainer.py:95 of the JAX package); every rank resumes from them.
 """
 
 import time
@@ -10,6 +12,7 @@ import time
 import numpy as np
 import torch
 
+from ..parallel.dist import barrier, is_main_process
 from ..parallel.train_step import device_batch, make_train_step
 from ..utils.checkpoint import (
     latest_checkpoint, restore_checkpoint, save_checkpoint,
@@ -47,8 +50,10 @@ def train_model(state, loader, total_epochs, ckpt_dir, logger, device,
         logger.info('epoch %d done in %.1fs (mean logged loss %.4f)', epoch,
                     time.time() - t_epoch,
                     np.mean(losses) if losses else float('nan'))
-        if ckpt_dir and ((epoch + 1) % ckpt_save_interval == 0
-                         or epoch + 1 == total_epochs):
+        if ckpt_dir and is_main_process() and (
+                (epoch + 1) % ckpt_save_interval == 0
+                or epoch + 1 == total_epochs):
             save_checkpoint(state, ckpt_dir, epoch + 1,
                             max_ckpt_save_num=max_ckpt_save_num, logger=logger)
+    barrier()  # the last checkpoint is on disk for every rank
     return state

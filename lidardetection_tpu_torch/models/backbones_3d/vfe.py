@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from ...ops.vfe_cuda import pillar_vfe
+from ...parallel.dist import batch_moments
 from ..layers import BN_EPS, BN_MOMENTUM, Dense, MaskedBatchNorm, lecun_normal_
 
 
@@ -176,11 +177,9 @@ class PillarVFE(nn.Module):
         z = aug.to(cdt) @ self.pfn_kernel.to(cdt)  # (B, V, P, C)
         zf = z.float()
         m = pillar_valid[..., None, None].float()
-        cnt = (m.sum() * p).clamp(min=1.0)
         s1 = (zf * m).sum((0, 1, 2))
         s2 = (zf * zf * m).sum((0, 1, 2))
-        mean = s1 / cnt
-        var = (s2 / cnt - mean * mean).clamp(min=0.0)
+        mean, var = batch_moments(m.sum() * p, s1, s2)  # the group's
         with torch.no_grad():
             m = self.momentum
             self.pfn_mean.copy_(m * self.pfn_mean + (1 - m) * mean)

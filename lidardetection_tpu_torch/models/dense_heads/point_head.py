@@ -18,6 +18,7 @@ from ...core.box_coders import build_box_coder
 from ...core.geometry import (
     enlarge_box3d, points_in_boxes_id, rotate_points_along_z,
 )
+from ...parallel.dist import batch_normalizer
 from ..layers import POINT_BN, Dense, MaskedBatchNorm
 
 
@@ -85,7 +86,7 @@ def point_cls_loss(point_cls_preds, point_cls_labels, num_class, weight=1.0):
     preds = point_cls_preds.reshape(-1, num_class)
     positives = labels > 0
     cls_weights = ((labels == 0) | positives).float()
-    pos_normalizer = positives.sum().float().clamp(min=1.0)
+    pos_normalizer = batch_normalizer(positives.sum().float())
     cls_weights = cls_weights / pos_normalizer
     one_hot = torch.nn.functional.one_hot(
         labels.clamp(min=0), num_class + 1)[..., 1:].to(preds.dtype)
@@ -102,7 +103,7 @@ def point_box_loss(point_box_preds, point_box_labels, point_cls_labels,
     preds = point_box_preds.reshape(-1, point_box_preds.shape[-1])
     targets = point_box_labels.reshape(-1, preds.shape[-1])
     pos = (labels > 0).float()
-    reg_weights = pos / pos.sum().clamp(min=1.0)
+    reg_weights = pos / batch_normalizer(pos.sum())
     loss = losses.weighted_smooth_l1_loss(
         preds[None], targets[None], reg_weights[None],
         code_weights=code_weights).sum()
@@ -118,7 +119,7 @@ def point_part_loss(point_part_preds, point_part_labels, point_cls_labels,
     preds = point_part_preds.reshape(-1, 3)
     targets = point_part_labels.reshape(-1, 3)
     pos = labels > 0
-    pos_normalizer = pos.sum().float().clamp(min=1.0)
+    pos_normalizer = batch_normalizer(pos.sum().float())
     p = torch.sigmoid(preds)
     bce = -(targets * torch.log(p.clamp(min=1e-7))
             + (1 - targets) * torch.log((1 - p).clamp(min=1e-7)))
@@ -233,7 +234,7 @@ class PointHeadSimpleMultiFrame(nn.Module):
         preds = fwd['point_cls_preds'].reshape(
             -1, self.num_class * self.stack_frame_size)
         positives = labels > 0
-        pos_norm = positives.sum().float().clamp(min=1.0)
+        pos_norm = batch_normalizer(positives.sum().float())
         cls_weights = (((labels == 0) | positives).float() / pos_norm).sum(-1)
         one_hot = torch.cat([
             torch.nn.functional.one_hot(l.clamp(min=0), self.num_class + 1)

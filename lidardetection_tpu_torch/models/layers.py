@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.dist import batch_moments
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99  # ra = m * ra + (1 - m) * batch; torch's momentum 0.01
 # the point-based layers' BatchNorms (torch defaults in the reference)
@@ -40,7 +42,10 @@ class MaskedBatchNorm(nn.Module):
     the batch in float32 over the entries whose `mask` (the shape of x
     without its channel dim, or broadcastable to it) is set: ``cnt =
     max(sum(mask), 1)``, ``var = max(s2 / cnt - mean^2, 0)``, and moves the
-    running statistics by `momentum` with that biased variance.
+    running statistics by `momentum` with that biased variance. In a
+    process group the count and the sums are the group's
+    (``parallel/dist.py::batch_moments``), the counterpart of the JAX
+    module's ``psum`` over its ``axis_name``.
     Masked-out entries are still normalized. It is written with tensor
     operations, so autograd differentiates through the statistics;
     ``torch.nn.functional.batch_norm`` computes neither the mask nor the
@@ -68,11 +73,10 @@ class MaskedBatchNorm(nn.Module):
             s2 = (xf * xf).sum(dims)
         else:
             m = mask.float().unsqueeze(axis)
-            cnt = m.sum().clamp(min=1.0)
+            cnt = m.sum()
             s1 = (xf * m).sum(dims)
             s2 = (xf * xf * m).sum(dims)
-        mean = s1 / cnt
-        var = (s2 / cnt - mean * mean).clamp(min=0.0)
+        mean, var = batch_moments(cnt, s1, s2)
         with torch.no_grad():
             m = self.momentum
             self.mean.copy_(m * self.mean + (1 - m) * mean)

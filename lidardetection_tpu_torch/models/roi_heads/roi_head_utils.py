@@ -18,6 +18,7 @@ import torch
 from ...core import losses
 from ...core.geometry import rotate_points_along_z
 from ...core.iou3d import boxes_iou3d, nms_bev_batched
+from ...parallel.dist import batch_normalizer
 
 # the names of the four uniform draws of a sample's RoI sampling, with the
 # length of each: N (the proposals) or R (ROI_PER_IMAGE)
@@ -251,7 +252,7 @@ def roi_box_loss(fwd, box_coder, loss_cfg):
     gt_src = fwd['gt_of_rois_src'][..., 0:code].reshape(-1, code)
     rcnn_reg = fwd['rcnn_reg'].reshape(-1, fwd['rcnn_reg'].shape[-1])
     rois = fwd['rois'].reshape(-1, fwd['rois'].shape[-1])[:, 0:code]
-    fg_sum = reg_valid.sum().clamp(min=1.0)
+    fg_sum = batch_normalizer(reg_valid.sum())
     w = loss_cfg['LOSS_WEIGHTS']
     if loss_cfg['REG_LOSS'] != 'smooth-l1':
         raise NotImplementedError(loss_cfg['REG_LOSS'])
@@ -300,6 +301,6 @@ def roi_cls_loss(fwd, loss_cfg):
             1, labels.clamp(min=0).long()[:, None])[:, 0]
     else:
         raise NotImplementedError(loss_cfg['CLS_LOSS'])
-    loss = (per_roi * valid).sum() / valid.sum().clamp(min=1.0)
+    loss = (per_roi * valid).sum() / batch_normalizer(valid.sum())
     loss = loss * loss_cfg['LOSS_WEIGHTS']['rcnn_cls_weight']
     return loss, {'rcnn_loss_cls': loss}

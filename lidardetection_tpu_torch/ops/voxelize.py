@@ -29,7 +29,7 @@ import numpy as np
 from .. import native
 from ..config import grid_size_from_range
 from ..datasets.processor.data_processor import (
-    mask_points_by_range, pad_points, process_points,
+    mask_points_by_range, pad_clouds, process_points,
 )
 from .sparse_plan import build_host_rulebooks
 
@@ -152,10 +152,10 @@ def build_batch(points_list, point_cloud_range, voxel_size,
 
 def stack_points(clouds, max_points):
     """points (B, max_points, C) float32, each cloud's first max_points
-    zero-padded, and num_points (B,) int32."""
-    padded, num = zip(*(pad_points(np.asarray(c, np.float32), max_points)
-                        for c in clouds))
-    return {'points': np.stack(padded), 'num_points': np.asarray(num, np.int32)}
+    zero-padded (max_points 0: padded to the largest cloud,
+    ``data_processor.pad_clouds``), and num_points (B,) int32."""
+    points, num = pad_clouds(clouds, max_points)
+    return {'points': points, 'num_points': num}
 
 
 def build_point_batch(points_list, processor_cfgs, point_cloud_range,

@@ -13,6 +13,10 @@ JAX package folds ``state.step`` into its key: a resumed run draws what
 the uninterrupted one drew.
 Parameters are updated in place. A float32 model steps in float32 whatever
 the process's TF32 and matmul-precision flags are (``utils/precision.py``).
+In a process group the step is the single-process step over the global
+batch, the ranks' batches stacked in rank order (``parallel/dist.py``):
+the gradients are averaged over the ranks before the optimizer step, and
+the loss terms it returns are the global batch's.
 ``make_eval_step`` returns ``step(batch) -> preds``: the eval forward,
 post-processing and the recall counters.
 """
@@ -21,6 +25,7 @@ import torch
 
 from ..models.detectors.post_processing import compute_recall, post_processing
 from ..utils.precision import full_f32
+from .dist import average_gradients, average_terms, get_rank, get_world_size
 
 # batch keys the step reads; ``rb_*`` (host-built rulebooks) ride along
 DEVICE_KEYS = ('voxels', 'voxel_coords', 'voxel_num_points', 'num_voxels',
@@ -37,12 +42,20 @@ def device_batch(batch, device):
 def step_draw(seed, step, device):
     """``draw(name, shape)`` -> float32 uniforms in [0, 1) on `device`, in
     call order from a ``torch.Generator`` seeded with (seed, step). The
-    names say which layer draws; this source ignores them."""
+    names say which layer draws; this source ignores them. Every draw's
+    first dimension runs over the batch's samples (a sample's rows
+    together); in a process group each rank draws the global batch's
+    numbers, its batch times the group's size, and takes its own rows:
+    the ranks' samples draw what they draw in the global step."""
     generator = torch.Generator(device=device)
     generator.manual_seed((int(seed) << 32) + int(step))
+    rank, world = get_rank(), get_world_size()
 
     def draw(name, shape):
-        return torch.rand(shape, generator=generator, device=device)
+        rows = shape[0]
+        whole = torch.rand((rows * world, *shape[1:]), generator=generator,
+                           device=device)
+        return whole[rank * rows:(rank + 1) * rows]
 
     return draw
 
@@ -79,8 +92,9 @@ def make_train_step(state):
         with full_f32(model.compute_dtype == torch.float32):
             loss, tb = model.loss(model(batch, draw))
             loss.backward()
+            average_gradients(optimizer.params)
             optimizer.step()
-        return {k: v.detach() for k, v in tb.items()}
+        return average_terms({k: v.detach() for k, v in tb.items()})
 
     return step
 

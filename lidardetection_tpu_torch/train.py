@@ -23,18 +23,28 @@ shuffles (and for a point config samples) each cloud's points, and a generator m
 (``seed``, step) for the random layers (the two-stage detectors' RoI
 sampling and dropout, ``parallel/train_step.py::step_draw``), all from ``seed``.
 
-CLI: with ``--data_path`` it trains from a dataset tree on disk (a KITTI
-or NuScenes layout with its infos, ``datasets/kitti/kitti_dataset.py``)
+CLI: with ``--data_path`` it trains from a dataset tree on disk (a KITTI,
+NuScenes, PlusAI, Livox or Mix layout with its infos, ``datasets/``)
 through ``datasets.build_dataloader`` (``--workers`` forked processes
 build the batches ahead of the step) and ``Trainer.fit``, with a
 checkpoint each epoch under ``--output_dir`` (a run on a directory that
 holds one resumes), then evaluates the test split through
 ``engine/evaluator.py::eval_one_epoch``, the counterpart of
-tools/train.py:105-147 in one process:
+tools/train.py:105-147:
 
     python -m lidardetection_tpu_torch.train \
         --cfg_file tools/cfgs/kitti_models/second.yaml --data_path <root> \
         --workers 8 --epochs 1
+
+Under ``torchrun`` it joins the process group (``parallel/dist.py``: NCCL,
+a card a process; gloo with ``--device cpu``), each rank training and
+evaluating on its shard of the tree, the step the single-process step over
+the global batch (the batch size is a rank's); the main process writes
+the checkpoints and scores the merged eval:
+
+    torchrun --nproc_per_node 2 -m lidardetection_tpu_torch.train \
+        --cfg_file tools/cfgs/mix_data_models/pointpillars_xy.yaml \
+        --data_path <root> --epochs 1
 
 Without it, it trains on synthetic scenes made from ``--seed``:
 
@@ -70,6 +80,7 @@ from .engine.evaluator import eval_one_epoch
 from .engine.trainer import train_model
 from .models import build_network
 from .ops.sparse_plan import config_plan
+from .parallel.dist import get_rank, get_world_size, init_distributed
 from .ops.voxelize import build_batch, build_point_batch
 from .parallel.train_step import TrainState, device_batch, make_train_step
 from .utils.common import create_logger
@@ -180,23 +191,27 @@ class Trainer:
 
 def train_from_files(args, trainer, batch_size):
     """Train on the tree at ``args.data_path``, then evaluate its test
-    split; returns the eval's result dict."""
+    split (in a process group, each rank on its shard); returns the eval's
+    result dict (empty on a rank other than the main process)."""
     cfg = trainer.cfg
+    rank, world = get_rank(), get_world_size()
     output_dir = Path(args.output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
-    logger = create_logger(output_dir / 'log_train.txt')
+    logger = create_logger(output_dir / 'log_train.txt', rank=rank)
     classes = list(cfg['CLASS_NAMES'])
+    shard = {'num_shards': world, 'shard_id': rank}
     _, loader = build_dataloader(
         cfg['DATA_CONFIG'], classes, batch_size, training=True,
         root_path=args.data_path, workers=args.workers, logger=logger,
-        model_cfg=cfg['MODEL'], seed=args.seed)
-    logger.info('%d training batches of %d a epoch, %d loader workers',
-                len(loader), batch_size, loader.num_workers)
+        model_cfg=cfg['MODEL'], seed=args.seed, **shard)
+    logger.info('%d training batches of %d a epoch, %d loader workers, '
+                'rank %d of %d', len(loader), batch_size, loader.num_workers,
+                rank, world)
     trainer.fit(loader, output_dir / 'ckpt', logger, total_epochs=args.epochs)
     _, test_loader = build_dataloader(
         cfg['DATA_CONFIG'], classes, batch_size, training=False,
         root_path=args.data_path, workers=args.workers, logger=logger,
-        model_cfg=cfg['MODEL'], seed=args.seed)
+        model_cfg=cfg['MODEL'], seed=args.seed, **shard)
     result, _ = eval_one_epoch(trainer.model, test_loader,
                                cfg['MODEL']['POST_PROCESSING'], classes, logger,
                                result_dir=output_dir / 'eval')
@@ -223,6 +238,9 @@ def main(argv=None):
                         'output/<cfg name>)')
     args = parser.parse_args(argv)
 
+    _, world = init_distributed('gloo' if args.device == 'cpu' else None)
+    if world > 1 and args.device == 'cuda':
+        args.device = f'cuda:{torch.cuda.current_device()}'
     if args.data_path is not None:
         trainer = Trainer(args.cfg_file, device=args.device, seed=args.seed)
         if args.output_dir is None:
@@ -230,6 +248,9 @@ def main(argv=None):
         return train_from_files(args, trainer, args.batch_size or int(
             trainer.cfg['OPTIMIZATION']['BATCH_SIZE_PER_GPU']))
 
+    if world > 1:
+        raise SystemExit('a process group trains from a dataset tree: pass '
+                         '--data_path')
     trainer = Trainer(args.cfg_file, device=args.device, seed=args.seed,
                       total_steps=args.num_steps)
     batch_size = args.batch_size or int(

@@ -232,3 +232,44 @@ def test_kernel_wrappers_reject_other_devices():
                     torch.zeros((1, 64), dtype=torch.int32, device=meta),
                     runs, runs, torch.zeros((1, 4, 3), device=meta),
                     (0.4, 0.8), (16, 16), 192)
+
+
+def test_new_modules_are_walked():
+    """The fork's datasets, their generators and the process group are
+    among the sources the no-JAX checks read."""
+    modules = ('datasets/plusai/plusai_dataset.py',
+               'datasets/plusai/plusai_bag_dataset.py',
+               'datasets/plusai/fake_lidar_dataset/gen_fake_lidar.py',
+               'datasets/plusai/mot_dataset/gen_mot_dataset.py',
+               'datasets/livox/livox_dataset.py',
+               'datasets/mix_data/mix_dataset.py',
+               'datasets/mix_data/gen_mix_dataset.py',
+               'utils/calibration_plusai.py', 'parallel/dist.py')
+    sources = set((ROOT / 'lidardetection_tpu_torch').rglob('*.py'))
+    for name in modules:
+        assert ROOT / 'lidardetection_tpu_torch' / name in sources, name
+
+
+def test_every_config_names_a_registered_dataset():
+    """``dataset_class`` resolves the DATASET of every config under
+    tools/cfgs/ to a class of that name."""
+    from lidardetection_tpu_torch.config import cfg_from_yaml_file
+    from lidardetection_tpu_torch.datasets import DATASETS, dataset_class
+
+    paths = sorted((ROOT / 'tools' / 'cfgs').rglob('*.yaml'))
+    names = set()
+    cwd = os.getcwd()
+    os.chdir(ROOT)  # the _BASE_CONFIG_ paths
+    try:
+        for path in paths:
+            cfg = cfg_from_yaml_file(str(path))
+            names.add((cfg.get('DATA_CONFIG') or cfg)['DATASET'])
+    finally:
+        os.chdir(cwd)
+    assert len(paths) >= 17
+    assert names == {'KittiDataset', 'NuScenesDataset', 'LivoxDataset',
+                     'PlusAIMultiframeDataset', 'MixDataset'}
+    for name in set(DATASETS) | names:
+        assert dataset_class(name).__name__ == name
+    with pytest.raises(NotImplementedError, match='no dataset'):
+        dataset_class('WaymoDataset')
