@@ -231,6 +231,15 @@ step on a loader batch held against its plain version (K5 bit for bit),
 K1 and K2 bit for bit on a Mix eval batch; then the Mix trainer in a
 one-process NCCL group: its step and its eval through
 ``merge_results_dist`` against the bare ones (``distributed_phase``).
+The tools, last (``tools_phase``): ``tools/verify_cuda.py`` (every case
+ok), ``demo`` over 4 scans of the data phase's KITTI val split,
+``inference --with_tracking`` and ``mot_benchmark --with_tracking`` over 8
+synthetic scenes (the MOT table, the tracker's host ms a frame),
+``inference_bag2json`` over the scans (the JSON read back), ``test
+--eval_all`` over two checkpoints of PointPillar written by training steps
+there, and ``demo_3d``'s computing path on SECOND, each scene or eval batch
+a run with its launches checked; the image writers where their packages
+are installed. The verifier's cases join the kernels' JSON.
 The line before the last is the kernels' JSON (K5's entry with PointRCNN's
 two levels under ``pointrcnn``; K3's and K4's at VoxelResBackBone8x's
 shapes under ``cbgs``), preceded by the card's name and power limit; the
@@ -280,6 +289,8 @@ CFG_MIX_PP = 'tools/cfgs/mix_data_models/pointpillars_xy.yaml'
 PLUSAI_SCENES, PLUSAI_FRAMES = 4, 6  # 4 stacked samples a scene, the last in val
 MIX_FRAMES, MIX_VAL = 16, 4          # the Mix tree's frames, those in val
 FORK_LOADER_STEPS = 8  # steps timed from the loader, each fork config
+TOOL_SCANS = 4         # the tools' folder: scans of the KITTI tree's val split
+TOOL_SCENES = 8        # inference and the MOT benchmark: synthetic scenes
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12     # H100 SXM, dense bf16 on the tensor cores
@@ -3713,6 +3724,265 @@ def fork_data_phase(torch, wrappers, root):
     return runs, errors
 
 
+@contextlib.contextmanager
+def counted_calls(owner, attr, per_call, label):
+    """owner.attr wrapped for the block so that each call is one run of a
+    main path: every launch count set to 0 just before the call and
+    checked after it against `per_call` (each kernel's wrapper -> its
+    launches a call). Yields the totals by kernel name."""
+    fn = getattr(owner, attr)
+    total = {k.__name__: 0 for k in per_call}
+
+    def run(*args, **kwargs):
+        for k in per_call:
+            k.launches = 0
+        result = fn(*args, **kwargs)
+        for k, each in per_call.items():
+            check(k.launches == each, f'{label}: {k.__name__} launched '
+                  f'{k.launches} times a call, expected {each}')
+            total[k.__name__] += k.launches
+        return result
+
+    setattr(owner, attr, run)
+    try:
+        yield total
+    finally:
+        setattr(owner, attr, fn)
+
+
+def tools_phase(torch, wrappers, kitti, tmp, cfg_pillar=CFG,
+                cfg_second=CFG_SECOND):
+    """The port's tools (``lidardetection_tpu_torch/tools/``) on the card, at
+    full width: ``verify_cuda.main([])`` (every case ok, exit 0); ``demo`` over
+    TOOL_SCANS scans of the KITTI tree's val split (PointPillar, 1 K1 and 1
+    K2 a scan); ``inference --with_tracking`` and ``mot_benchmark
+    --with_tracking`` over TOOL_SCENES synthetic scenes (the table printed,
+    the tracker's host ms a frame); ``inference_bag2json`` over the scans
+    (the JSON read back: one record a frame, track ids unique in a frame);
+    ``test --eval_all --max_waiting_mins 0`` over the checkpoints (each
+    evaluated in order, recall finite, 1 K1 and 1 K2 a batch); ``demo_3d``'s
+    computing path on SECOND (12 K3, 1 K2 a scene). The tools read
+    checkpoint_epoch_1.pth and _2.pth of PointPillar, written by training
+    steps here, and a SECOND checkpoint of weights from SEED, each with the
+    class-logit bias 0 (``zero_class_bias``), so that every tool sees live
+    detections. Each counted run sets the launch counts to 0 before each
+    scene or batch and checks them after. The image writers run where the
+    machine has their package (cv2, matplotlib, PIL), and a line says
+    which ran. Returns the launches of each run and the verifier's
+    cases."""
+    import importlib.util
+    import logging
+    import os
+
+    from lidardetection_tpu_torch.tools import (
+        common as tool_common, demo, demo_3d, inference,
+        inference_bag2json, mot_benchmark, test as test_tool, verify_cuda,
+    )
+    from lidardetection_tpu_torch.train import Trainer
+    from lidardetection_tpu_torch.utils.checkpoint import save_checkpoint
+
+    pillar_vfe, scatter_rows, rulebook_conv, _, _ = wrappers
+    per_pillar = {pillar_vfe: 1, scatter_rows: 1}
+    logger = logging.getLogger('chip_smoke.tools')
+    t_phase = time.perf_counter()
+    runs, seconds = {}, {}
+
+    t0 = time.perf_counter()
+    calls = []
+    with recorded(verify_cuda, 'verify', calls):
+        rc = verify_cuda.main([])
+    cases = calls[0][2]
+    seconds['verify_cuda'] = time.perf_counter() - t0
+    check(rc == 0 and cases and all(c['ok'] for c in cases),
+          'verify_cuda: every case ok')
+    print(json.dumps({'verify_cuda': cases}), flush=True)
+
+    # the checkpoints the tools read: two epochs of PointPillar training
+    # steps and SECOND's weights from SEED, each with the dense head's
+    # class-logit bias 0 (live NMS candidates: the focal prior puts every
+    # random-weight score under SCORE_THRESH)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg_pillar, device='cuda', seed=SEED, total_steps=2)
+    batches, _ = train_batches(trainer, 2, SEED + 1700)
+    ckpt_dir = tmp / 'ckpt'
+    for epoch, batch in enumerate(batches, 1):
+        trainer.step(batch)
+        zero_class_bias(torch, trainer.model)
+        save_checkpoint(trainer.state, ckpt_dir, epoch)
+    del trainer, batches
+    second_ckpt = tmp / 'second' / 'checkpoint_epoch_1.pth'
+    second = Trainer(cfg_second, device='cuda', seed=SEED, total_steps=1)
+    zero_class_bias(torch, second.model)
+    save_checkpoint(second.state, second_ckpt.parent, 1)
+    del second
+    seconds['checkpoints'] = time.perf_counter() - t0
+
+    scans = tmp / 'scans'
+    scans.mkdir()
+    val = (kitti / 'ImageSets' / 'val.txt').read_text().split()[:TOOL_SCANS]
+    for fid in val:
+        os.symlink(kitti / 'training' / 'velodyne' / f'{fid}.bin',
+                   scans / f'{fid}.bin')
+    pillar = ['--cfg_file', cfg_pillar, '--ckpt', str(ckpt_dir)]
+
+    t0 = time.perf_counter()
+    with counted_calls(tool_common.Predictor, 'predict', per_pillar,
+                       'demo') as runs['tools: demo']:
+        records = demo.main(pillar + ['--data_path', str(scans)])
+    seconds['demo'] = time.perf_counter() - t0
+    check(len(records) == TOOL_SCANS and all(
+        np.isfinite(r['boxes']).all() and r['boxes'].shape[1] == 7
+        and len(r['boxes']) > 0 for r in records),
+          'demo: finite detections in every scan')
+    demo_ms = [r['ms'] for r in records]
+    print(f'demo: {TOOL_SCANS} KITTI scans, detections '
+          f'{[len(r["boxes"]) for r in records]}, ms a scene {demo_ms} '
+          f'(host clock: the batch to the card, the eval step, the '
+          f'predictions back), p50 {float(np.median(demo_ms[1:])):.2f} '
+          f'after the first', flush=True)
+
+    t0 = time.perf_counter()
+    with counted_calls(tool_common.Predictor, 'predict', per_pillar,
+                       'inference') as runs['tools: inference']:
+        records = inference.run(inference.parse_args(
+            pillar + ['--num_scenes', str(TOOL_SCENES), '--with_tracking']),
+            logger)
+    seconds['inference'] = time.perf_counter() - t0
+    tracker_ms = [r['tracker_ms'] for r in records]
+    tracks = [len(r['tracked']['object_ids']) for r in records]
+    print(f'inference --with_tracking: {TOOL_SCENES} synthetic scenes, '
+          f'detections {[len(r["boxes"]) for r in records]}, tracks {tracks}, '
+          f'eval step ms {[round(r["ms"], 2) for r in records]}, tracker host '
+          f'ms a frame {[round(t, 3) for t in tracker_ms]} (p50 '
+          f'{float(np.median(tracker_ms)):.3f})', flush=True)
+    check(all(np.isfinite(r['boxes']).all() and len(r['boxes']) > 0
+              for r in records) and max(tracks) > 0,
+          'inference: finite detections in every scene, confirmed tracks')
+
+    t0 = time.perf_counter()
+    with counted_calls(tool_common.Predictor, 'predict', per_pillar,
+                       'mot_benchmark') as runs['tools: mot_benchmark']:
+        table, mot_records = mot_benchmark.run(mot_benchmark.parse_args(
+            pillar + ['--num_scenes', str(TOOL_SCENES), '--with_tracking']),
+            logger)
+    seconds['mot_benchmark'] = time.perf_counter() - t0
+    for row in table:
+        print(f'MOT iou {row["iou"]} range <{row["range"]} m: recall '
+              f'{row["recall"]:.3f} precision {row["precision"]:.3f} dist_err '
+              f'{row["dist_err"]:.3f} m (tp {row["tp"]}, det {row["det"]}, gt '
+              f'{row["gt"]})', flush=True)
+    check(len(table) == 12 and all(
+        np.isfinite([row['recall'], row['precision'], row['dist_err']]).all()
+        for row in table), 'mot_benchmark: a finite table')
+    check([len(r['boxes']) for r in mot_records]
+          == [len(r['boxes']) for r in records],
+          'mot_benchmark: the detections of inference on the same scenes')
+
+    t0 = time.perf_counter()
+    out = tmp / 'detections.json'
+    with counted_calls(tool_common.Predictor, 'predict', per_pillar,
+                       'inference_bag2json') as runs['tools: bag2json']:
+        inference_bag2json.main(pillar + ['--data_path', str(scans),
+                                          '--output', str(out)])
+    seconds['inference_bag2json'] = time.perf_counter() - t0
+    frames = json.loads(out.read_text())
+    check(len(frames) == TOOL_SCANS and all(
+        len({o['id'] for o in f['tracked_objects']})
+        == len(f['tracked_objects']) for f in frames),
+        'inference_bag2json: a record a frame, track ids unique in a frame')
+    print(f'inference_bag2json: {len(frames)} frames, detections '
+          f'{[len(f["detections"]) for f in frames]}, tracks '
+          f'{[len(f["tracked_objects"]) for f in frames]}', flush=True)
+
+    t0 = time.perf_counter()
+    eval_runs = []
+    real_eval = test_tool.eval_one_epoch
+
+    def counted_eval(model, loader, *args, **kwargs):
+        counted = CountedLoader(loader, per_pillar)
+        result = real_eval(model, counted, *args, **kwargs)
+        eval_runs.append(counted.total)
+        return result
+
+    test_tool.eval_one_epoch = counted_eval
+    try:
+        results = test_tool.main([
+            '--cfg_file', cfg_pillar, '--eval_all', '--ckpt_dir', str(ckpt_dir), '--max_waiting_mins',
+            '0', '--synthetic', '--num_scenes', str(EVAL_SCENES),
+            '--batch_size', str(EVAL_BATCH), '--output_dir', str(tmp / 'eval')])
+    finally:
+        test_tool.eval_one_epoch = real_eval
+    seconds['test --eval_all'] = time.perf_counter() - t0
+    runs['tools: test --eval_all'] = {
+        k: sum(r[k] for r in eval_runs) for k in eval_runs[0]}
+    check([tag for _, tag, _ in results] == ['epoch_1', 'epoch_2'],
+          'test --eval_all: both epochs, in order')
+    for ckpt, tag, result in results:
+        recall = {k: v for k, v in result.items() if k.startswith('recall/')}
+        check(recall and all(np.isfinite(v) for v in recall.values()),
+              f'test --eval_all: {tag} gives a finite recall')
+        print(f'test --eval_all {tag}: recall {recall}, Car 3D moderate R40 '
+              f'{result["Car_3d/moderate_R40"]:.2f}, sec_per_example '
+              f'{result["sec_per_example"]:.4f}', flush=True)
+
+    t0 = time.perf_counter()
+    with counted_calls(tool_common.Predictor, 'predict',
+                       {rulebook_conv: 12, scatter_rows: 1},
+                       'demo_3d') as runs['tools: demo_3d']:
+        records_3d = demo_3d.run(demo_3d.parse_args(
+            ['--cfg_file', cfg_second, '--ckpt', str(second_ckpt),
+             '--synthetic', '--num_scenes', '2', '--offscreen']), logger)
+    seconds['demo_3d'] = time.perf_counter() - t0
+    check(all(np.isfinite(r['boxes']).all() and r['detections'] > 0
+              for r in records_3d), 'demo_3d: finite detections')
+    print(f'demo_3d (SECOND): detections {[r["detections"] for r in records_3d]}'
+          f', above the threshold {[len(r["boxes"]) for r in records_3d]}',
+          flush=True)
+
+    have = {p: importlib.util.find_spec(p) is not None
+            for p in ('cv2', 'matplotlib', 'PIL')}
+    ran = []
+    if have['matplotlib']:
+        from lidardetection_tpu_torch.tools.visual_utils.laserdetvis import (
+            LaserDetVis,
+        )
+        from lidardetection_tpu_torch.utils.data_viz import plot_gt_det_cmp
+        r = records[0]
+        plot_gt_det_cmp(r['frame'].points[:, :3], r['frame'].gt_boxes,
+                        r['boxes'], point_cloud_range(cfg_pillar), save_dir=tmp)
+        LaserDetVis.render_offscreen(
+            records_3d[0]['points'], boxes=records_3d[0]['boxes'],
+            save_path=str(tmp / 'scene.png'))
+        ran += ['plot_gt_det_cmp', 'render_offscreen']
+    if have['cv2']:
+        from lidardetection_tpu_torch.tools.inference_video import write_video
+        from lidardetection_tpu_torch.utils.data_viz import (
+            bev_canvas, plot_multiframe_boxes,
+        )
+        canvases = [bev_canvas(r['frame'].points, r['boxes'],
+                               point_cloud_range(cfg_pillar)) for r in records]
+        canvases.append(plot_multiframe_boxes(
+            records[0]['frame'].points, records[0]['boxes'],
+            point_cloud_range(cfg_pillar)))
+        write_video(canvases, tmp / 'video.avi', 5)
+        ran += ['bev_canvas', 'plot_multiframe_boxes', '.avi']
+        if have['PIL']:
+            write_video(canvases, tmp / 'video.gif', 5)
+            ran.append('.gif')
+    print(f'tools phase image writers: ran {ran or "none"}; absent packages '
+          f'{[p for p, ok in have.items() if not ok] or "none"}', flush=True)
+    seconds['phase'] = time.perf_counter() - t_phase
+    print(json.dumps({'tools_seconds': seconds}), flush=True)
+    return runs, cases
+
+
+def point_cloud_range(cfg_file):
+    """A config's POINT_CLOUD_RANGE."""
+    from lidardetection_tpu_torch.config import cfg_from_yaml_file
+
+    return cfg_from_yaml_file(cfg_file)['DATA_CONFIG']['POINT_CLOUD_RANGE']
+
+
 def main():
     import torch
 
@@ -4065,7 +4335,6 @@ def main():
     profile_run(torch, f'SECONDNet: {PROFILED_STEPS} training steps fed by '
                 'the loader', lambda: steps_from_files(PROFILED_STEPS))
     batches_files.close()  # the loader's workers end
-    data_root.cleanup()
     for det, points in profiled:
         profile_request(torch, det, points)
     for each, batch in ((trainer_pillar, batch_pillar),
@@ -4077,7 +4346,14 @@ def main():
         profile_run(torch, f'{each.cfg["MODEL"]["NAME"]} training step',
                     lambda: each.step(batch))
 
-    # launches: the sum over the thirty-one main paths' runs, each
+    print('== the tools ==', flush=True)
+    tools_root = tempfile.TemporaryDirectory(prefix='chip_smoke_tools_')
+    runs_from_tools, verify_cases = tools_phase(
+        torch, wrappers, Path(data_root.name) / 'kitti', Path(tools_root.name))
+    tools_root.cleanup()
+    data_root.cleanup()
+
+    # launches: the sum over the thirty-seven main paths' runs, each
     # counted from 0
     runs = {'PointPillar serving': launches, 'SECONDNet serving': launches_second,
             'PVRCNN serving': launches_pvrcnn,
@@ -4101,7 +4377,7 @@ def main():
             'PV-RCNN multiframe training': launches_train_multiframe,
             'PartA2-free training': launches_train_free,
             'SECOND multi-head eval': launches_eval_mh, **runs_from_files,
-            **runs_from_fork}
+            **runs_from_fork, **runs_from_tools}
     # Part-A²'s per-layer rows on a line of their own, its totals in the
     # kernels line
     parta2_rows = {'K3 request': k3_parta2.pop('layers'),
@@ -4131,6 +4407,13 @@ def main():
                                errors_from_files.get(k['name'], 0.0),
                                errors_from_fork.get(k['name'], 0.0))
     kernels = [k1, k2, k3, k4, k5]
+    for k in kernels:  # the verifier's cases of each kernel
+        mine = [c for c in verify_cases if c['kernel'] == k['name']]
+        k['verify_cuda'] = [{'case': c['case'], 'max_abs_err': c['max_abs_err']}
+                            for c in mine]
+        check(mine, f'verify_cuda checked {k["name"]}')
+        k['max_abs_err'] = max([k['max_abs_err']]
+                               + [c['max_abs_err'] for c in mine])
     for k in kernels:
         k['launches'] = sum(run.get(k['name'], 0) for run in runs.values())
         check(k['launches'] > 0, f'{k["name"]} ran on a main path')

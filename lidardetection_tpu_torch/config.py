@@ -6,6 +6,8 @@ DATA_CONFIG the static grid facts that ``build_network`` needs (the JAX
 package reads them off its dataset object).
 """
 
+import ast
+
 import numpy as np
 import yaml
 
@@ -72,6 +74,37 @@ def cfg_from_yaml_file(cfg_file, config=None):
     with open(cfg_file, 'r') as f:
         new_config = yaml.safe_load(f)
     return merge_new_config(config=config, new_config=new_config)
+
+
+def cfg_from_list(cfg_list, config):
+    """Set keys from a ``['A.B.C', 'value', ...]`` list (the tools' ``--set``),
+    each value read as a Python literal, else as YAML, and cast to the type
+    of the value it replaces. A key the config lacks raises KeyError."""
+    if len(cfg_list) % 2:
+        raise ValueError(f'--set takes key / value pairs, got {cfg_list}')
+    for full_key, v in zip(cfg_list[0::2], cfg_list[1::2]):
+        *path, subkey = full_key.split('.')
+        d = config
+        for key in path:
+            if key not in d:
+                raise KeyError(f'NotFoundKey: {key} of {full_key}')
+            d = d[key]
+        if subkey not in d:
+            raise KeyError(f'NotFoundKey: {subkey} of {full_key}')
+        try:
+            value = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            value = yaml.safe_load(v)
+        if isinstance(value, dict):
+            d[subkey].update(CfgNode(value))
+        else:
+            if type(value) != type(d[subkey]) and d[subkey] is not None:
+                if isinstance(d[subkey], (list, tuple)):
+                    value = type(d[subkey])(yaml.safe_load(v))
+                else:
+                    value = type(d[subkey])(value)
+            d[subkey] = value
+    return config
 
 
 def voxel_processor_cfg(data_cfg):

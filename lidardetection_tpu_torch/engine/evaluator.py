@@ -24,9 +24,10 @@ from ..parallel.dist import (
 from ..parallel.train_step import device_batch, make_eval_step
 
 
-def _to_host(tree):
+def to_host(tree):
+    """A dict tree of tensors as numpy arrays on the host."""
     if isinstance(tree, dict):
-        return {k: _to_host(v) for k, v in tree.items()}
+        return {k: to_host(v) for k, v in tree.items()}
     return tree.cpu().numpy() if torch.is_tensor(tree) else tree
 
 
@@ -53,7 +54,7 @@ def eval_one_epoch(model, loader, post_cfg, class_names, logger,
     n_samples = 0
     t0 = time.time()
     for batch in loader:
-        preds = _to_host(step_fn(device_batch(batch, device)))
+        preds = to_host(step_fn(device_batch(batch, device)))
         for k, v in preds.pop('recall', {}).items():
             recall_totals[k] = recall_totals.get(k, 0) + int(v)
         annos = dataset.generate_prediction_dicts(batch, preds, class_names)

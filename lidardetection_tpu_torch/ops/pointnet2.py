@@ -227,6 +227,17 @@ def grid_ball_query_multi(radii, nsamples, xyz, xyz_num, new_xyz,
     ``ball_query`` whenever no run is cut. Returns [(idx, empty)] per
     radius, each with ``ball_query``'s contract.
     """
+    tops = ball_select(*grid_select_args(radii, nsamples, xyz, xyz_num,
+                                         new_xyz, new_xyz_valid, bounds,
+                                         cell_cap))
+    return [decode(t, ns) for t, ns in zip(tops, nsamples)]
+
+
+def grid_select_args(radii, nsamples, xyz, xyz_num, new_xyz,
+                     new_xyz_valid=None, bounds=None, cell_cap=64):
+    """``ball_select``'s arguments for `grid_ball_query_multi`: the
+    cell-sorted sources, their original indices, each centre's row runs,
+    the centres, radii, nsamples and the run cap."""
     assert bounds is not None, 'grid_ball_query needs a static range'
     x0, y0, z0, x1, y1, z1 = (float(v) for v in bounds)
     cell = float(max(radii))
@@ -286,11 +297,10 @@ def grid_ball_query_multi(radii, nsamples, xyz, xyz_num, new_xyz,
     end = torch.minimum(torch.stack(ends, -1), start + max_run)
     if new_xyz_valid is not None:
         end = torch.where(new_xyz_valid[..., None], end, start)
-    tops = ball_select(src_sorted.contiguous(), order.int().contiguous(),
-                       start.int().contiguous(), end.int().contiguous(),
-                       new_xyz.float().contiguous(), tuple(radii),
-                       tuple(nsamples), max_run)
-    return [decode(t, ns) for t, ns in zip(tops, nsamples)]
+    return (src_sorted.contiguous(), order.int().contiguous(),
+            start.int().contiguous(), end.int().contiguous(),
+            new_xyz.float().contiguous(), tuple(radii), tuple(nsamples),
+            max_run)
 
 
 def roi_candidates(src, src_num, centers, r_cand, k_cand):

@@ -48,10 +48,18 @@ def save_checkpoint(state, ckpt_dir, epoch, max_ckpt_save_num=30, logger=None):
     return str(path)
 
 
+def checkpoints(ckpt_dir):
+    """Paths of the complete checkpoints in epoch order ([] where there is
+    no such directory)."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return [str(path) for _, path in _complete_checkpoints(ckpt_dir)]
+
+
 def latest_checkpoint(ckpt_dir):
     """Path of the newest complete checkpoint, or None."""
-    ckpts = _complete_checkpoints(ckpt_dir) if os.path.isdir(ckpt_dir) else []
-    return str(ckpts[-1][1]) if ckpts else None
+    ckpts = checkpoints(ckpt_dir)
+    return ckpts[-1] if ckpts else None
 
 
 def restore_checkpoint(path, state, logger=None):

@@ -38,11 +38,17 @@ def create_logger(log_file=None, rank=0, log_level=logging.INFO):
         console.setLevel(log_level if rank == 0 else 'ERROR')
         console.setFormatter(formatter)
         logger.addHandler(console)
-        if log_file is not None:
-            fh = logging.FileHandler(log_file)
-            fh.setLevel(log_level if rank == 0 else 'ERROR')
-            fh.setFormatter(formatter)
-            logger.addHandler(fh)
+    if log_file is not None:
+        # the newest run's file: a process that made the logger before
+        # (another tool, another run) still gets this run's log
+        for old in [h for h in logger.handlers
+                    if isinstance(h, logging.FileHandler)]:
+            logger.removeHandler(old)
+            old.close()
+        fh = logging.FileHandler(log_file)
+        fh.setLevel(log_level if rank == 0 else 'ERROR')
+        fh.setFormatter(formatter)
+        logger.addHandler(fh)
     return logger
 
 

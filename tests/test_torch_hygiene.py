@@ -43,7 +43,9 @@ _SCRIPT = textwrap.dedent('''
         importlib.import_module(mod.name)
     leaked = sorted(m for m in sys.modules
                     if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
-                                           'orbax', 'lidardetection_tpu'))
+                                           'orbax', 'lidardetection_tpu',
+                                           'tools', 'cv2', 'matplotlib',
+                                           'PIL', 'vispy'))
     print('LEAKED', leaked)
 ''')
 
@@ -112,13 +114,14 @@ def test_train_cli_refuses_to_start_without_cuda():
 
 
 def test_sources_name_no_jax_module():
-    """No source file of the port imports jax, flax, optax, orbax or the JAX
-    package, in any function either (the subprocess above only sees the
-    imports that ran)."""
+    """No source file of the port imports jax, flax, optax, orbax, the JAX
+    package or the repository's tools/, in any function either (the
+    subprocess above only sees the imports that ran)."""
     import re
 
     pattern = re.compile(
-        r'^\s*(?:from|import)\s+(jax|jaxlib|flax|optax|orbax|lidardetection_tpu)\b',
+        r'^\s*(?:from|import)\s+'
+        r'(jax|jaxlib|flax|optax|orbax|lidardetection_tpu|tools)\b',
         re.MULTILINE)
     sources = sorted((ROOT / 'lidardetection_tpu_torch').rglob('*.py'))
     sources.append(ROOT / 'chip_smoke.py')
@@ -235,8 +238,9 @@ def test_kernel_wrappers_reject_other_devices():
 
 
 def test_new_modules_are_walked():
-    """The fork's datasets, their generators and the process group are
-    among the sources the no-JAX checks read."""
+    """The fork's datasets, their generators, the process group, the tools,
+    the tracker and the visualiser are among the sources the no-JAX checks
+    read (the subprocess's walk imports each of them)."""
     modules = ('datasets/plusai/plusai_dataset.py',
                'datasets/plusai/plusai_bag_dataset.py',
                'datasets/plusai/fake_lidar_dataset/gen_fake_lidar.py',
@@ -244,7 +248,14 @@ def test_new_modules_are_walked():
                'datasets/livox/livox_dataset.py',
                'datasets/mix_data/mix_dataset.py',
                'datasets/mix_data/gen_mix_dataset.py',
-               'utils/calibration_plusai.py', 'parallel/dist.py')
+               'utils/calibration_plusai.py', 'parallel/dist.py',
+               'utils/tracker_for_inference.py', 'utils/data_viz.py',
+               'tools/common.py', 'tools/test.py', 'tools/demo.py',
+               'tools/inference.py', 'tools/inference_video.py',
+               'tools/mot_benchmark.py', 'tools/inference_bag2json.py',
+               'tools/demo_3d.py', 'tools/verify_cuda.py',
+               'tools/visual_utils/visualize_utils.py',
+               'tools/visual_utils/laserdetvis.py')
     sources = set((ROOT / 'lidardetection_tpu_torch').rglob('*.py'))
     for name in modules:
         assert ROOT / 'lidardetection_tpu_torch' / name in sources, name
