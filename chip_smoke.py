@@ -240,6 +240,20 @@ synthetic scenes (the MOT table, the tracker's host ms a frame),
 there, and ``demo_3d``'s computing path on SECOND, each scene or eval batch
 a run with its launches checked; the image writers where their packages
 are installed. The verifier's cases join the kernels' JSON.
+The training CLI, after the tools (``train_cli_phase``): ``train.main``
+on SECOND at full width with ``--synthetic --num_scenes 32 --batch_size
+4 --epochs 2 --workers 8 --extra_tag smoke --max_ckpt_save_num 2
+--num_epochs_to_eval 2 --profile`` from a temporary working directory,
+each of its 16 steps with 23 K3, 12 K4 and 1 K2 checked, each eval batch
+with 12 K3 and 1 K2: both checkpoints under
+output/kitti_models/second/smoke/ckpt, eval/ and eval/epoch_1/, the
+config dumped in the log, the profile window's Chrome trace naming K2's,
+K3's and K4's kernels, the TensorBoard scalars where TensorBoard imports;
+then ``tools.test.evaluate --eval_all`` with no ``--ckpt_dir`` reads
+both epochs, each with the recall and the detections of the training
+run's own eval. It prints the iteration p50 (wait, copy, step), the eval
+``sec_per_example``, the profile window's wall time and the phase's
+seconds.
 The line before the last is the kernels' JSON (K5's entry with PointRCNN's
 two levels under ``pointrcnn``; K3's and K4's at VoxelResBackBone8x's
 shapes under ``cbgs``), preceded by the card's name and power limit; the
@@ -291,6 +305,7 @@ MIX_FRAMES, MIX_VAL = 16, 4          # the Mix tree's frames, those in val
 FORK_LOADER_STEPS = 8  # steps timed from the loader, each fork config
 TOOL_SCANS = 4         # the tools' folder: scans of the KITTI tree's val split
 TOOL_SCENES = 8        # inference and the MOT benchmark: synthetic scenes
+CLI_SCENES, CLI_EPOCHS = 32, 2  # the training CLI's run: 8 steps an epoch
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12     # H100 SXM, dense bf16 on the tensor cores
@@ -2167,14 +2182,14 @@ def host_plan_phase(trainer):
     batch: the voxelizer and the training plan's rulebook build, the host
     library against the numpy plain version (equal arrays), median times."""
     from lidardetection_tpu_torch import native
-    from lidardetection_tpu_torch.datasets.synthetic import SyntheticDataset
+    from lidardetection_tpu_torch.datasets.synthetic import SyntheticScenes
     from lidardetection_tpu_torch.ops.sparse_plan import build_host_rulebooks
     from lidardetection_tpu_torch.ops.voxelize import (
         mask_points_by_range, voxelize_np,
     )
 
     info, plan = trainer.info, trainer.plan
-    dataset = SyntheticDataset(trainer.class_names, info['point_cloud_range'],
+    dataset = SyntheticScenes(trainer.class_names, info['point_cloud_range'],
                                num_scenes=TRAIN_BATCH, seed=SEED + 700)
     times = {k: [] for k in ('voxelize native', 'voxelize numpy',
                              'plan native', 'plan numpy')}
@@ -2384,7 +2399,7 @@ def precise_bn_phase(torch):
     layer a block, narrow filters), the same 3 training batches of 2
     scenes. Every statistics leaf within 1e-3 of its largest magnitude."""
     from lidardetection_tpu_torch.config import cfg_from_yaml_file, dataset_info
-    from lidardetection_tpu_torch.datasets.synthetic import SyntheticDataset
+    from lidardetection_tpu_torch.datasets.synthetic import SyntheticScenes
     from lidardetection_tpu_torch.engine.bn_recalibrate import (
         recalibrate_bn_stats,
     )
@@ -2406,7 +2421,7 @@ def precise_bn_phase(torch):
     m.BACKBONE_2D.NUM_FILTERS = [32, 32, 64]
     m.BACKBONE_2D.NUM_UPSAMPLE_FILTERS = [32, 32, 32]
     info = dataset_info(data)
-    dataset = SyntheticDataset(cfg.CLASS_NAMES, info['point_cloud_range'],
+    dataset = SyntheticScenes(cfg.CLASS_NAMES, info['point_cloud_range'],
                                num_scenes=6, seed=SEED + 600)
     batches = []
     for i in range(3):
@@ -3976,6 +3991,235 @@ def tools_phase(torch, wrappers, kitti, tmp, cfg_pillar=CFG,
     return runs, cases
 
 
+def trace_kernels(trace_path, names):
+    """{name: the kernel events of a Chrome trace whose name holds it}."""
+    with open(trace_path) as f:
+        events = json.load(f)['traceEvents']
+    kernels = [e['name'] for e in events if e.get('cat') == 'kernel']
+    return {n: sum(n in k for k in kernels) for n in names}
+
+
+def scalar_tags(event_dir):
+    """The scalar tags of a TensorBoard directory's event files (TFRecords
+    of ``Event`` protos)."""
+    import struct
+
+    from tensorboard.compat.proto import event_pb2
+
+    tags = set()
+    for path in Path(event_dir).glob('events.out.tfevents.*'):
+        data, at = path.read_bytes(), 0
+        while at < len(data):
+            n = struct.unpack('<Q', data[at:at + 8])[0]
+            event = event_pb2.Event.FromString(data[at + 12:at + 12 + n])
+            at += 12 + n + 4
+            tags.update(v.tag for v in event.summary.value)
+    return tags
+
+
+def train_cli_phase(torch, wrappers, tmp):
+    """The training CLI's main path, ``train.main`` on the card at full
+    width: CFG_SECOND (bf16, the host plan) on CLI_SCENES scenes of the
+    registered SyntheticDataset through ``build_dataloader`` (8 forked
+    workers), CLI_EPOCHS epochs at B = 4 (8 steps each, 23 K3, 12 K4 and 1
+    K2 checked after every step), a checkpoint each epoch, the profile
+    window (steps 10-15) traced, then the eval of the final state and the
+    repeat-eval of epoch 1 (12 K3 and 1 K2 a batch); then
+    ``tools.test.evaluate --eval_all`` on the same YAML with no
+    ``--ckpt_dir``, which must find both checkpoints through the default
+    layout and read each epoch's recall and detections as the training
+    run's own eval read them. Both runs take ``--set
+    MODEL.POST_PROCESSING.SCORE_THRESH 0.001``, so that the
+    random-weight model's evals have detections to compare. The working directory is
+    `tmp`, with ``tools`` linked to the repository's (the configs'
+    _BASE_CONFIG_ paths). Returns the launches of the three runs."""
+    import os
+    import re
+
+    from lidardetection_tpu_torch import train
+    from lidardetection_tpu_torch.engine import trainer as loop
+    from lidardetection_tpu_torch.tools import test as test_tool
+
+    _, scatter_rows, rulebook_conv, rulebook_conv_dw, _ = wrappers
+    per_step = {rulebook_conv: 12 + 11, rulebook_conv_dw: 12, scatter_rows: 1}
+    per_batch = {rulebook_conv: 12, scatter_rows: 1}
+    t_phase = time.perf_counter()
+    steps = {k.__name__: 0 for k in per_step}
+    # host clock at each batch's arrival from the loader, its copy's end
+    # and its step's end
+    arrived, copied, step_ends = [], [], []
+    make_step = loop.make_train_step
+    real_device_batch = loop.device_batch
+
+    def timed_device_batch(batch, device):
+        arrived.append(time.perf_counter())
+        out = real_device_batch(batch, device)
+        torch.cuda.synchronize()
+        copied.append(time.perf_counter())
+        return out
+
+    def counted_make_step(state):
+        step = make_step(state)
+
+        def run(batch):
+            for k in per_step:
+                k.launches = 0
+            tb = step(batch)
+            torch.cuda.synchronize()
+            step_ends.append(time.perf_counter())
+            for k, each in per_step.items():
+                check(k.launches == each, f'training CLI step {len(step_ends)}'
+                      f': {k.__name__} launched {k.launches} times, expected '
+                      f'{each}')
+                steps[k.__name__] += k.launches
+            return tb
+
+        return run
+
+    evals = []
+
+    def counted_eval(real_eval, model, loader, *args, **kwargs):
+        counted = CountedLoader(loader, per_batch)
+        result, annos = real_eval(model, counted, *args, **kwargs)
+        evals.append((counted.total, result, annos))
+        return result, annos
+
+    scenes, epochs, batch = str(CLI_SCENES), str(CLI_EPOCHS), str(TRAIN_BATCH)
+    scores = ['--set', 'MODEL.POST_PROCESSING.SCORE_THRESH', '0.001']
+    cwd = os.getcwd()
+    os.symlink(Path(cwd) / 'tools', tmp / 'tools')
+    os.chdir(tmp)
+    real_eval = train.eval_one_epoch
+    loop.make_train_step = counted_make_step
+    loop.device_batch = timed_device_batch
+    train.eval_one_epoch = lambda *a, **k: counted_eval(real_eval, *a, **k)
+    try:
+        t0 = time.perf_counter()
+        result = train.main([
+            '--cfg_file', CFG_SECOND, '--synthetic', '--num_scenes', scenes,
+            '--batch_size', batch, '--epochs', epochs, '--workers', '8',
+            '--extra_tag', 'smoke', '--max_ckpt_save_num', '2',
+            '--num_epochs_to_eval', '2', '--profile', *scores])
+        train_s = time.perf_counter() - t0
+        loop.make_train_step = make_step
+        loop.device_batch = real_device_batch
+        train.eval_one_epoch = real_eval
+        trained = evals[:]
+        evals.clear()
+        test_tool.eval_one_epoch = lambda *a, **k: counted_eval(real_eval, *a,
+                                                                **k)
+        t0 = time.perf_counter()
+        tested = test_tool.evaluate(test_tool.parse_args([
+            '--cfg_file', CFG_SECOND, '--synthetic', '--num_scenes', scenes,
+            '--extra_tag', 'smoke', '--eval_all', '--max_waiting_mins', '0',
+            *scores]))
+        test_s = time.perf_counter() - t0
+    finally:
+        loop.make_train_step = make_step
+        loop.device_batch = real_device_batch
+        train.eval_one_epoch = real_eval
+        test_tool.eval_one_epoch = real_eval
+        os.chdir(cwd)
+
+    out = tmp / 'output' / 'kitti_models' / 'second' / 'smoke'
+    n_steps = CLI_EPOCHS * CLI_SCENES // TRAIN_BATCH
+    ckpts = sorted(p.name for p in (out / 'ckpt').iterdir())
+    check(ckpts == ['checkpoint_epoch_1.pth', 'checkpoint_epoch_2.pth'],
+          f'training CLI: the checkpoints of both epochs under {out}/ckpt: '
+          f'{ckpts}')
+    check(len(step_ends) == n_steps, f'training CLI: {n_steps} steps')
+    check(all(steps[k.__name__] == n_steps * each
+              for k, each in per_step.items()),
+          f'training CLI: launches {steps} over {n_steps} steps')
+    check((out / 'eval' / 'result.pkl').exists()
+          and (out / 'eval' / 'epoch_1' / 'result.pkl').exists(),
+          'training CLI: eval/ and eval/epoch_1/ each hold a result')
+    logs = list(out.glob('log_train_*.txt'))
+    check(len(logs) == 1, f'training CLI: one log, {logs}')
+    log = logs[0].read_text()
+    check('cfg.TAG: second' in log and 'cfg.MODEL.NAME: SECONDNet' in log
+          and 'cfg.DATA_CONFIG.DATASET: SyntheticDataset' in log,
+          'training CLI: the config dumped in the log')
+    window = re.search(r'profiler: steps (\d+)-(\d+) in ([0-9.]+) s', log)
+    check(window and window.groups()[:2] == ('10', '15'),
+          'training CLI: the profile window of steps 10-15')
+    window_s = float(window.group(3))
+    traces = list((out / 'profile').glob('*.json'))
+    check(len(traces) == 1, f'training CLI: one trace, {traces}')
+    named = trace_kernels(traces[0], ('scatter_rows_kernel', 'conv_mma_kernel',
+                                      'dw_mma_kernel'))
+    check(all(named.values()), f'training CLI: the trace names K2, K3 and '
+          f'K4: {named}')
+    if 'tensorboard writer unavailable' in log:
+        board = 'TensorBoard absent (torch.utils.tensorboard does not ' \
+            'import): no scalars'
+    else:
+        tags = scalar_tags(out / 'tensorboard')
+        check({'train/loss', 'meta_data/learning_rate'} <= tags,
+              f'training CLI: TensorBoard scalars {sorted(tags)}')
+        board = (f'TensorBoard tags {sorted(t for t in tags if t[:5] != "eval/")}'
+                 f' and {sum(t[:5] == "eval/" for t in tags)} eval/ tags')
+
+    # each epoch's eval by the training run against test --eval_all's
+    check([tag for _, tag, _ in tested] == ['epoch_1', 'epoch_2'],
+          f'test --eval_all: both epochs in order, {[t for _, t, _ in tested]}')
+    by_epoch = {'epoch_2': trained[0], 'epoch_1': trained[1]}
+    for (_, tag, got), (_, want, want_annos) in zip(
+            tested, (by_epoch['epoch_1'], by_epoch['epoch_2'])):
+        got_annos = evals[[t for _, t, _ in tested].index(tag)][2]
+        recall = {k: v for k, v in want.items() if k.startswith('recall/')}
+        same = recall and all(got[k] == v for k, v in recall.items())
+        same_annos = len(got_annos) == len(want_annos) and all(
+            np.array_equal(g['boxes_lidar'], w['boxes_lidar'])
+            and np.array_equal(g['score'], w['score'])
+            for g, w in zip(got_annos, want_annos))
+        finite = sum(int(np.isfinite(a['boxes_lidar']).all(axis=1).sum())
+                     for a in want_annos)
+        print(f'training CLI {tag}: recall {recall} (test --eval_all '
+              f'{ {k: got[k] for k in recall} }), detections '
+              f'{sum(len(a["name"]) for a in want_annos)} ({finite} with '
+              f'finite boxes), the same boxes and '
+              f'scores {same_annos}, Car 3D moderate R40 '
+              f'{want["Car_3d/moderate_R40"]:.2f}, sec_per_example '
+              f'{want["sec_per_example"]:.4f} s (test: '
+              f'{got["sec_per_example"]:.4f})', flush=True)
+        check(same and same_annos and sum(len(a['name']) for a in want_annos),
+              f'training CLI {tag}: test --eval_all reads the recall and the '
+              'detections of the training run\'s eval')
+
+    # iterations: step end to step end within an epoch, outside the
+    # window: the wait on the loader, the copy to the card, the step
+    per_epoch = CLI_SCENES // TRAIN_BATCH
+    timed = [i for i in range(1, n_steps)
+             if i % per_epoch and not 10 <= i <= 15]
+    iteration = [(step_ends[i] - step_ends[i - 1]) * 1e3 for i in timed]
+    p50 = {name: float(np.median([(end[i] - start[i]) * 1e3 for i in timed]))
+           for name, start, end in (('wait', [None] + step_ends, arrived),
+                                    ('copy', arrived, copied),
+                                    ('step', copied, step_ends))}
+    runs = {'training CLI: train': steps}
+    for label, part in (('training CLI: eval', trained),
+                        ('training CLI: test --eval_all', evals)):
+        runs[label] = {k.__name__: sum(e[0][k.__name__] for e in part)
+                       for k in per_batch}
+    seconds = time.perf_counter() - t_phase
+    print(f'training CLI (SECOND, {CLI_SCENES} synthetic scenes, B='
+          f'{TRAIN_BATCH}, {CLI_EPOCHS} epochs, 8 workers): iteration p50 '
+          f'{float(np.median(iteration)):.2f} ms from the loader = wait '
+          f'{p50["wait"]:.2f} + copy {p50["copy"]:.2f} + step '
+          f'{p50["step"]:.2f} (p50s; host clock, step end to step end, device '
+          f'synchronised; {len(iteration)} iterations, the first of each epoch '
+          f'and the profile window apart: {[round(t, 2) for t in iteration]}'
+          f'); the profile window of steps '
+          f'10-15 {window_s * 1e3:.2f} ms wall ({window_s * 1e3 / 5:.2f} ms a '
+          f'step, profiler on); the trace\'s kernels {named}; eval '
+          f'sec_per_example {trained[0][1]["sec_per_example"]:.4f} s; '
+          f'{board}; train.main {train_s:.1f} s, test --eval_all '
+          f'{test_s:.1f} s, the phase {seconds:.1f} s; launches {runs}',
+          flush=True)
+    return runs
+
+
 def point_cloud_range(cfg_file):
     """A config's POINT_CLOUD_RANGE."""
     from lidardetection_tpu_torch.config import cfg_from_yaml_file
@@ -4353,8 +4597,13 @@ def main():
     tools_root.cleanup()
     data_root.cleanup()
 
-    # launches: the sum over the thirty-seven main paths' runs, each
-    # counted from 0
+    print('== the training CLI ==', flush=True)
+    cli_root = tempfile.TemporaryDirectory(prefix='chip_smoke_cli_')
+    runs_from_cli = train_cli_phase(torch, wrappers, Path(cli_root.name))
+    cli_root.cleanup()
+
+    # launches: the sum over the forty main paths' runs, each counted
+    # from 0
     runs = {'PointPillar serving': launches, 'SECONDNet serving': launches_second,
             'PVRCNN serving': launches_pvrcnn,
             'PartA2Net serving': launches_parta2,
@@ -4377,7 +4626,7 @@ def main():
             'PV-RCNN multiframe training': launches_train_multiframe,
             'PartA2-free training': launches_train_free,
             'SECOND multi-head eval': launches_eval_mh, **runs_from_files,
-            **runs_from_fork, **runs_from_tools}
+            **runs_from_fork, **runs_from_tools, **runs_from_cli}
     # Part-A²'s per-layer rows on a line of their own, its totals in the
     # kernels line
     parta2_rows = {'K3 request': k3_parta2.pop('layers'),

@@ -1,12 +1,16 @@
-"""YAML configuration (copy of lidardetection_tpu/config.py:15-86).
+"""YAML configuration (copy of lidardetection_tpu/config.py:15-131).
 
 An attribute-access dict built from YAML with single-level
-``_BASE_CONFIG_`` inheritance, plus `dataset_info`, which derives from the
-DATA_CONFIG the static grid facts that ``build_network`` needs (the JAX
-package reads them off its dataset object).
+``_BASE_CONFIG_`` inheritance, tagged with the YAML's stem (``TAG``) and
+folder (``EXP_GROUP_PATH``), which name a run's output directory
+``output/<EXP_GROUP_PATH>/<TAG>/<extra_tag>``; ``log_config_to_file``
+dumps a config to a logger; `dataset_info` derives from the DATA_CONFIG
+the static grid facts that ``build_network`` needs (the JAX package
+reads them off its dataset object).
 """
 
 import ast
+from pathlib import Path
 
 import numpy as np
 import yaml
@@ -68,12 +72,18 @@ def merge_new_config(config, new_config):
 
 def cfg_from_yaml_file(cfg_file, config=None):
     """Load a YAML file into ``config``; ``_BASE_CONFIG_`` paths are
-    relative to the working directory, as in the JAX package."""
+    relative to the working directory, as in the JAX package. ``TAG`` is
+    the file's stem and ``EXP_GROUP_PATH`` its folder's name
+    (``kitti_models`` for tools/cfgs/kitti_models/second.yaml)."""
     if config is None:
         config = CfgNode()
     with open(cfg_file, 'r') as f:
         new_config = yaml.safe_load(f)
-    return merge_new_config(config=config, new_config=new_config)
+    merge_new_config(config=config, new_config=new_config)
+    config.TAG = Path(cfg_file).stem
+    parts = Path(cfg_file).resolve().parts
+    config.EXP_GROUP_PATH = parts[-2] if len(parts) >= 2 else ''
+    return config
 
 
 def cfg_from_list(cfg_list, config):
@@ -105,6 +115,17 @@ def cfg_from_list(cfg_list, config):
                     value = type(d[subkey])(value)
             d[subkey] = value
     return config
+
+
+def log_config_to_file(cfg, pre='cfg', logger=None):
+    """Every key of `cfg` to `logger`, a line each (``<pre>.<path>:
+    <value>``), a header line before each nested dict."""
+    for key, val in cfg.items():
+        if isinstance(val, dict):
+            logger.info('----------- %s -----------', key)
+            log_config_to_file(val, pre=f'{pre}.{key}', logger=logger)
+            continue
+        logger.info('%s.%s: %s', pre, key, val)
 
 
 def voxel_processor_cfg(data_cfg):

@@ -35,6 +35,7 @@ from .dataset import DatasetTemplate
 PREFETCH = 2  # batches each worker builds ahead (the JAX loader's prefetch)
 
 DATASETS = {
+    'SyntheticDataset': 'synthetic',
     'KittiDataset': 'kitti.kitti_dataset',
     'NuScenesDataset': 'nuscenes.nuscenes_dataset',
     'PlusAIDataset': 'plusai.plusai_dataset',
@@ -266,16 +267,17 @@ def build_dataloader(dataset_cfg, class_names, batch_size, training=True,
                      root_path=None, workers=4, logger=None, model_cfg=None,
                      num_shards=1, shard_id=0,
                      merge_all_iters_to_one_epoch=False, total_epochs=0,
-                     seed=0):
+                     seed=0, **dataset_kwargs):
     """(dataset, loader) of a DATA_CONFIG's dataset at `root_path` (default
-    its DATA_PATH). With `model_cfg` the samples carry the model's host
+    its DATA_PATH), `dataset_kwargs` passed to the dataset (the synthetic
+    set's ``num_scenes``). With `model_cfg` the samples carry the model's host
     plan and only the raw points it reads (``DatasetTemplate.set_model``).
     `workers` > 1 forks that many worker processes (at most the host's
     cores); training shuffles and drops the last partial batch, test
     buckets the voxel tables unless DATA_CONFIG.VOXEL_BUCKETING is false."""
     dataset = dataset_class(dataset_cfg['DATASET'])(
         dataset_cfg=dataset_cfg, class_names=class_names, training=training,
-        root_path=root_path, logger=logger, seed=seed)
+        root_path=root_path, logger=logger, seed=seed, **dataset_kwargs)
     if model_cfg is not None:
         dataset.set_model(model_cfg)
     if merge_all_iters_to_one_epoch:

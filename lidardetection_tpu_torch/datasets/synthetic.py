@@ -1,9 +1,13 @@
 """Synthetic LiDAR scenes (copy of lidardetection_tpu/datasets/synthetic.py
 ``make_scene`` and ``_beam_ground``): deterministic request clouds made
-from a seed, for the server's CLI and the chip smoke run; the training set
-and its loader; and the eval side (``SyntheticCalib``,
-``kitti_anno_from_lidar``, the dataset's ``generate_prediction_dicts`` and
-``evaluation``, and the test-mode loader of ``build_test_loader``).
+from a seed, for the server's CLI and the chip smoke run; `SyntheticScenes`,
+the in-memory training set, and its loader; the eval side
+(``SyntheticCalib``, ``kitti_anno_from_lidar``, the set's
+``generate_prediction_dicts`` and ``evaluation``, and the test-mode loader
+of ``build_test_loader``); and `SyntheticDataset`, the same scenes as a
+``DatasetTemplate`` that ``datasets.build_dataloader`` builds for
+``DATASET: SyntheticDataset`` (the JAX package's SyntheticDataset), which
+the training and test CLIs' ``--synthetic`` read.
 
 A config's data decides three things more (`scene_options`), as the JAX
 package's SyntheticDataset reads them: with PRED_VELOCITY the gt boxes are
@@ -26,6 +30,7 @@ from ..config import dataset_info, raw_point_capacity, voxel_processor_cfg
 from ..core import np_geometry as npg
 from ..ops.sparse_plan import config_plan
 from ..ops.voxelize import build_batch, build_point_batch
+from .dataset import DatasetTemplate
 from .processor.data_processor import mask_boxes_outside_range
 
 BUCKET_GRANULARITY = 4096  # lidardetection_tpu/datasets/__init__.py:49
@@ -147,7 +152,7 @@ def make_sweeps(rng, point_cloud_range, sweeps, num_ground=18000,
 
 
 def scene_options(data_cfg, num_point_features):
-    """The `SyntheticDataset` options a DATA_CONFIG sets."""
+    """The `SyntheticScenes` options a DATA_CONFIG sets."""
     return {'num_point_features': int(num_point_features),
             'pred_velocity': bool(data_cfg.get('PRED_VELOCITY', False)),
             'stack_frame_size': int(data_cfg.get('STACK_FRAME_SIZE', 0))}
@@ -182,7 +187,7 @@ def pad_gt_boxes(gt_boxes, gt_names, class_names, point_cloud_range,
     return out, padded
 
 
-class SyntheticDataset:
+class SyntheticScenes:
     """In-memory set of `num_scenes` scenes made from `seed` (scene i from
     ``RandomState(seed * 100003 + i)``, as the JAX package's
     SyntheticDataset draws them, its velocities and frame poses after the
@@ -280,6 +285,44 @@ class SyntheticDataset:
             gt_annos, det_annos, class_names)
 
 
+class SyntheticDataset(DatasetTemplate):
+    """The synthetic scenes as a dataset of the registry (``DATASET:
+    SyntheticDataset``; the JAX package's SyntheticDataset,
+    datasets/synthetic.py:116-191): `num_scenes` scenes from `seed`, scene
+    i drawn by `SyntheticScenes.sample` (``RandomState(seed * 100003 +
+    i)``, the velocities and frame poses after the scene), its points
+    with the zero columns that the source feature list asks for, then
+    ``prepare_data`` (augmentor, filters, processors, host plan, padding)
+    with the loader's generator. The frame id is the scene's index."""
+
+    def __init__(self, dataset_cfg, class_names, training=True, root_path=None,
+                 logger=None, num_scenes=64, seed=0):
+        super().__init__(dataset_cfg=dataset_cfg, class_names=class_names,
+                         training=training, root_path=root_path or '.',
+                         logger=logger, seed=seed)
+        width = len(dataset_cfg['POINT_FEATURE_ENCODING']['src_feature_list'])
+        self.scenes = SyntheticScenes(
+            class_names, self.point_cloud_range, num_scenes=num_scenes,
+            seed=seed, **scene_options(dataset_cfg, width))
+
+    def __len__(self):
+        return len(self.scenes)
+
+    def get_item(self, index, rng):
+        points, gt_boxes, gt_names, side = self.scenes.sample(index)
+        data_dict = {'points': points, 'gt_boxes': gt_boxes,
+                     'gt_names': gt_names, 'frame_id': index, **(side or {})}
+        return self.prepare_data(data_dict, rng)
+
+    def generate_prediction_dicts(self, batch_dict, pred_dicts, class_names,
+                                  output_path=None):
+        return self.scenes.generate_prediction_dicts(batch_dict, pred_dicts,
+                                                     class_names)
+
+    def evaluation(self, det_annos, class_names, **kwargs):
+        return self.scenes.evaluation(det_annos, class_names)
+
+
 class SyntheticLoader:
     """Batches of a dataset, collated by `collate` (``Trainer.make_batch``,
     or the test-mode collate of ``build_test_loader``). Drops the last
@@ -364,7 +407,7 @@ def build_test_loader(cfg, batch_size, num_scenes, seed=0):
     vox = voxel_processor_cfg(data_cfg)
     plan = config_plan(cfg, training=False)
     bucketing = bool(data_cfg.get('VOXEL_BUCKETING', True))
-    dataset = SyntheticDataset(
+    dataset = SyntheticScenes(
         cfg['CLASS_NAMES'], info['point_cloud_range'], num_scenes=num_scenes,
         seed=seed, max_gt_boxes=int(data_cfg.get('MAX_GT_BOXES', 64)),
         training=False,

@@ -69,6 +69,16 @@ def is_main_process():
     return get_rank() == 0
 
 
+def main_process_value(value):
+    """`value` as the main process has it, on every rank of a process
+    group (the ranks then agree on what to evaluate and when to stop)."""
+    if not in_group():
+        return value
+    shared = [value]
+    dist.broadcast_object_list(shared, src=0)
+    return shared[0]
+
+
 def barrier():
     """Every rank waits for the others (the reference's dist.barrier())."""
     if in_group():

@@ -12,7 +12,9 @@ run writes them (the counterpart of tools/test.py), through
 (default ``<output_dir>/ckpt``) in epoch order, then waits for new ones,
 looking every 30 s, and stops once ``--max_waiting_mins`` pass with none.
 The test split comes from the config's dataset (``--data_path`` for its
-root), or with ``--synthetic`` from ``--num_scenes`` synthetic scenes.
+root), or with ``--synthetic`` from ``--num_scenes`` scenes of the
+registered SyntheticDataset, the scenes that the training CLI's
+``--synthetic`` evaluates.
 Results go under ``<output_dir>/eval/<single | epoch_<n>>`` (``--output_dir``
 defaults to ``output/<cfg folder>/<cfg name>/<extra_tag>``, as the JAX
 tool's). Under ``torchrun`` each rank evaluates its shard of the split and
@@ -33,11 +35,10 @@ from pathlib import Path
 
 import torch
 
-from ..datasets import BatchIndices, build_dataloader
-from ..datasets.synthetic import build_test_loader
+from ..datasets import build_dataloader
 from ..engine.evaluator import eval_one_epoch
 from ..parallel.dist import (
-    get_rank, get_world_size, in_group, init_distributed,
+    get_rank, get_world_size, in_group, init_distributed, main_process_value,
 )
 from ..utils.checkpoint import checkpoint_epoch, checkpoints
 from ..utils.common import create_logger
@@ -68,47 +69,23 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-class ShardLoader:
-    """A rank's shard of a synthetic test set: ``BatchIndices``' batches
-    (every world-th scene, the last batch filled from the first), collated
-    as the unsharded loader collates."""
-
-    def __init__(self, dataset, collate, batch_size, rank, world):
-        self.dataset, self.collate = dataset, collate
-        self.sampler = BatchIndices(dataset, batch_size, drop_last=False,
-                                    num_shards=world, shard_id=rank)
-
-    def __len__(self):
-        return len(self.sampler)
-
-    def __iter__(self):
-        for ids in self.sampler:
-            yield self.collate([self.dataset[i] for i in ids])
-
-
 def test_loader(args, cfg, batch_size, logger):
-    """The test split's loader: this rank's shard in a process group."""
-    rank, world = get_rank(), get_world_size()
+    """The test split's loader (this rank's shard in a process group):
+    the config's dataset, or with ``--synthetic`` ``--num_scenes``
+    scenes of the registered SyntheticDataset (its augmentor removed, as
+    the JAX tool and the training CLI's ``--synthetic`` do), so that train
+    and test evaluate the same scenes."""
+    extra = {}
     if args.synthetic:
-        dataset, loader = build_test_loader(cfg, batch_size, args.num_scenes)
-        return loader if world == 1 else ShardLoader(
-            dataset, loader.collate, batch_size, rank, world)
+        cfg['DATA_CONFIG']['DATASET'] = 'SyntheticDataset'
+        cfg['DATA_CONFIG'].pop('DATA_AUGMENTOR', None)
+        extra = {'num_scenes': args.num_scenes}
     _, loader = build_dataloader(
         cfg['DATA_CONFIG'], list(cfg['CLASS_NAMES']), batch_size,
         training=False, root_path=args.data_path, workers=args.workers,
-        logger=logger, model_cfg=cfg['MODEL'], num_shards=world,
-        shard_id=rank)
+        logger=logger, model_cfg=cfg['MODEL'], num_shards=get_world_size(),
+        shard_id=get_rank(), **extra)
     return loader
-
-
-def main_process_value(value):
-    """`value` as the main process has it, on every rank of a process
-    group (the ranks then agree on what to evaluate and when to stop)."""
-    if not in_group():
-        return value
-    shared = [value]
-    torch.distributed.broadcast_object_list(shared, src=0)
-    return shared[0]
 
 
 def output_dir(args):

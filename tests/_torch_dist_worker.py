@@ -6,7 +6,8 @@ Run as ``python tests/_torch_dist_worker.py step-<config> <out.pkl>`` with
 torchrun's variables (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT) set: it
 takes one training step of the port on this rank's rows of the global
 batch in the group and pickles its loss terms, gradients and BatchNorm
-statistics.
+statistics. ``cli-<config.yaml>`` runs the training CLI instead
+(``cli_step``), the YAML beside ``out.pkl``.
 """
 
 import os
@@ -91,6 +92,42 @@ def step_results(trainer, batch):
             {k: v.numpy().copy() for k, v in trainer.model.named_buffers()})
 
 
+def cli_step(cfg_file, out_dir):
+    """``train.main`` on this rank of the group: ``--synthetic`` with
+    GLOBAL_BATCH scenes, the global ``--batch_size`` GLOBAL_BATCH, one
+    epoch, no eval. Returns the rows of the batch that the first step
+    took and the step's results (``step_results``'s), read by wrapping the
+    loop's train step."""
+    from lidardetection_tpu_torch import train
+    from lidardetection_tpu_torch.engine import trainer as loop
+
+    seen = []
+    make = loop.make_train_step
+
+    def recording(state):
+        step = make(state)
+
+        def run(batch):
+            tb = step(batch)
+            if not seen:
+                seen.append((int(batch['gt_boxes'].shape[0]), (
+                    {k: float(v) for k, v in tb.items()},
+                    {k: p.grad.numpy().copy()
+                     for k, p in state.model.named_parameters()},
+                    {k: v.numpy().copy()
+                     for k, v in state.model.named_buffers()})))
+            return tb
+
+        return run
+
+    loop.make_train_step = recording
+    train.main(['--cfg_file', str(cfg_file), '--device', 'cpu', '--synthetic',
+                '--num_scenes', str(GLOBAL_BATCH), '--batch_size',
+                str(GLOBAL_BATCH), '--epochs', '1', '--no_eval', '--workers',
+                '0', '--seed', str(SEED), '--output_dir', str(out_dir)])
+    return seen[0]
+
+
 def bn_rows(rank):
     """A train-mode MaskedBatchNorm on rows of the same shape on every rank,
     then on a rank-dependent number of rows with no mask: the group's
@@ -121,12 +158,15 @@ def main():
     assert world == int(os.environ['WORLD_SIZE']) > 1
     if case == 'bn-rows':
         result = bn_rows(rank)
+    elif case.startswith('cli-'):  # the CLI leaves the group at its end
+        result = cli_step(out.with_name(case[len('cli-'):]), out.parent / 'run')
     else:
         trainer, batch = trainer_and_batch(case[len('step-'):])
         result = step_results(trainer, rank_rows(batch, rank, world))
     with open(out.with_name(f'{out.stem}.rank{rank}.pkl'), 'wb') as f:
         pickle.dump(result, f)
-    torch.distributed.destroy_process_group()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == '__main__':

@@ -136,7 +136,7 @@ def test_train_cli_from_files(tree, tmp_path):
         assert all(torch.isfinite(v).all() for v in saved['model'].values())
         assert 'Car_3d/moderate_R40' in result and result['sec_per_example'] > 0
     assert (out / 'eval' / 'result.pkl').exists()
-    log = (out / 'log_train.txt').read_text()
+    log = ''.join(p.read_text() for p in sorted(out.glob('log_train_*.txt')))
     assert 'resumed from' in log and '2 loader workers' in log
     # the first step of each epoch is logged, and each epoch's mean
     losses = [float(x) for x in re.findall(r'loss (\S+) lr', log)

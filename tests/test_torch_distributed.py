@@ -192,7 +192,7 @@ def test_torchrun_trains_and_evaluates_as_one_process(tmp_path):
          '--workers', '0', '--output_dir', str(out)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-    log = (out / 'log_train.txt').read_text()
+    log = ''.join(p.read_text() for p in sorted(out.glob('log_train_*.txt')))
     assert '1 training batches of 2 a epoch, 0 loader workers, rank 0 of 2' \
         in log
     assert [p.name for p in (out / 'ckpt').iterdir()] == \

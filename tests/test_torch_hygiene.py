@@ -27,11 +27,11 @@ _SCRIPT = textwrap.dedent('''
     det.predict([points])
     import tempfile
     from lidardetection_tpu_torch.datasets.synthetic import (
-        SyntheticDataset, SyntheticLoader,
+        SyntheticScenes, SyntheticLoader,
     )
     from lidardetection_tpu_torch.train import Trainer, main
     trainer = Trainer(cfg, device='cpu')
-    dataset = SyntheticDataset(trainer.class_names, det.info['point_cloud_range'],
+    dataset = SyntheticScenes(trainer.class_names, det.info['point_cloud_range'],
                                num_scenes=2)
     with tempfile.TemporaryDirectory() as ckpt_dir:
         trainer.fit(SyntheticLoader(dataset, 2, trainer.make_batch), ckpt_dir,

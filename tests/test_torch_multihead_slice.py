@@ -39,7 +39,7 @@ from lidardetection_tpu_torch.config import (
 )
 from lidardetection_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
 from lidardetection_tpu_torch.datasets.synthetic import (
-    SyntheticDataset, scene_options,
+    SyntheticScenes, scene_options,
 )
 from lidardetection_tpu_torch.ops.voxelize import build_batch
 from lidardetection_tpu_torch.parallel import train_step
@@ -117,7 +117,7 @@ def case():
     cfg = _reduce(cfg_from_yaml_file(CFG))
     info = dataset_info(cfg.DATA_CONFIG)
     assert info['num_point_features'] == 5
-    dataset = SyntheticDataset(
+    dataset = SyntheticScenes(
         cfg.CLASS_NAMES, info['point_cloud_range'], num_scenes=2, seed=3,
         max_gt_boxes=24, **scene_options(cfg.DATA_CONFIG, 5))
     scenes = [dataset[i] for i in range(2)]

@@ -547,10 +547,10 @@ def test_two_steps_with_dropout_run_and_move_parameters(jax_step):
 def test_make_batch_carries_the_training_plan():
     """Trainer.make_batch builds UNetV2's training tables: the inverse
     convolutions' and every strided layer's transposed one."""
-    from lidardetection_tpu_torch.datasets.synthetic import SyntheticDataset
+    from lidardetection_tpu_torch.datasets.synthetic import SyntheticScenes
 
     trainer = Trainer(_reduce(cfg_from_yaml_file(CFG)), device='cpu')
-    data = SyntheticDataset(trainer.class_names,
+    data = SyntheticScenes(trainer.class_names,
                             trainer.info['point_cloud_range'], num_scenes=2,
                             seed=1, max_gt_boxes=trainer.max_gt_boxes)
     batch = trainer.make_batch([data[0], data[1]])

@@ -69,7 +69,7 @@ from lidardetection_tpu_torch.convert import flax_to_state_dict, state_dict_to_f
 from lidardetection_tpu_torch.core.box_coders import (
     PointResidualCoder, ResidualCoder,
 )
-from lidardetection_tpu_torch.datasets.synthetic import SyntheticDataset
+from lidardetection_tpu_torch.datasets.synthetic import SyntheticScenes
 from lidardetection_tpu_torch.models import layers
 from lidardetection_tpu_torch.models.dense_heads import point_head
 from lidardetection_tpu_torch.models.roi_heads import roi_head_utils
@@ -579,7 +579,7 @@ def test_make_batch_samples_and_shuffles_as_the_jax_processor():
     to the JAX processor chain under np.random.seed(seed), then padded."""
     cfg = _reduce(cfg_from_yaml_file(CFG))
     trainer = Trainer(cfg, device='cpu', seed=5)
-    dataset = SyntheticDataset(trainer.class_names,
+    dataset = SyntheticScenes(trainer.class_names,
                                trainer.info['point_cloud_range'], num_scenes=2)
     scenes = [dataset[0], dataset[1]]
     got = trainer.make_batch(scenes)
@@ -620,7 +620,7 @@ def test_pointrcnn_iou_variant_takes_a_step():
     cfg = _reduce(cfg_from_yaml_file('tools/cfgs/kitti_models/pointrcnn_iou.yaml'))
     assert cfg.MODEL.ROI_HEAD.TARGET_CONFIG.CLS_SCORE_TYPE == 'roi_iou'
     trainer = Trainer(cfg, device='cpu', total_steps=2)
-    dataset = SyntheticDataset(trainer.class_names,
+    dataset = SyntheticScenes(trainer.class_names,
                                trainer.info['point_cloud_range'], num_scenes=2)
     batch = trainer.make_batch([dataset[0], dataset[1]])
     model = trainer.model

@@ -220,11 +220,11 @@ def test_eval_all_on_two_gloo_ranks_gives_one_process(small, ckpt_dir):
          *_eval_args(cfg_file, ckpt_dir, root / 'two', 1)],
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
-    from lidardetection_tpu_torch.datasets.synthetic import SyntheticDataset
+    from lidardetection_tpu_torch.datasets.synthetic import SyntheticScenes
 
     cfg = cfg_from_yaml_file(str(cfg_file))
     dataset, _ = build_test_loader(cfg, 1, SCENES)
-    assert isinstance(dataset, SyntheticDataset)
+    assert isinstance(dataset, SyntheticScenes)
     for tag in ('epoch_2', 'epoch_10'):
         parts = []
         for run in (one, root / 'two'):

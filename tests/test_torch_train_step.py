@@ -31,7 +31,7 @@ from lidardetection_tpu.parallel.train_step import device_batch, jit_init
 from lidardetection_tpu_torch.config import cfg_from_yaml_file, dataset_info
 from lidardetection_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
 from lidardetection_tpu_torch.datasets.synthetic import (
-    SyntheticDataset, SyntheticLoader,
+    SyntheticScenes, SyntheticLoader,
 )
 from lidardetection_tpu_torch.ops.scatter_cuda import scatter_rows
 from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
@@ -260,7 +260,7 @@ def test_synthetic_training_set_and_make_batch():
     cfg = _reduce(cfg_from_yaml_file('tools/cfgs/kitti_models/second.yaml'),
                   'second')
     trainer = Trainer(cfg, device='cpu', total_steps=2)
-    dataset = SyntheticDataset(trainer.class_names,
+    dataset = SyntheticScenes(trainer.class_names,
                                trainer.info['point_cloud_range'],
                                num_scenes=4, seed=2, max_gt_boxes=16)
     points, gt = dataset[1]
@@ -293,7 +293,7 @@ def test_strided_input_gradient_runs_on_the_transposed_rulebooks(monkeypatch):
 
     cfg = _reduce(cfg_from_yaml_file('tools/cfgs/kitti_models/second.yaml'),
                   'second')
-    dataset = SyntheticDataset(('Car', 'Pedestrian', 'Cyclist'),
+    dataset = SyntheticScenes(('Car', 'Pedestrian', 'Cyclist'),
                                dataset_info(cfg['DATA_CONFIG'])
                                ['point_cloud_range'], num_scenes=2, seed=5,
                                max_gt_boxes=16)
