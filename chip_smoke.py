@@ -10,7 +10,11 @@ one-process NCCL group.
 Phases, each of which raises on failure (non-zero exit, no result line):
   1. build the kernels of csrc/ with nvcc (one nvcc per source, together)
      and the KITTI protocol's host library (native/) with g++, and read
-     the timing floor (a one-element kernel under ``cuda_ms``);
+     the timing floor (a one-element kernel under ``cuda_ms``, which
+     flushes the L2 clean before each call: ``tools/measure.py``), beside
+     the earlier timer's (its flush, a 64 MB write, left the L2 dirty) and
+     a 32 MB read and write after each flush; every kernel row below
+     carries its time under the earlier flush too (``old_flush_ms``);
   2. K1 and K2 against their plain PyTorch versions on the card, at the
      PointPillar path's shapes (40000-pillar table of voxelized synthetic
      scenes, P = 32, C = 64, 496 x 432 canvas, B = 1 and B = 4), bit-equal;
@@ -254,6 +258,22 @@ both epochs, each with the recall and the detections of the training
 run's own eval. It prints the iteration p50 (wait, copy, step), the eval
 ``sec_per_example``, the profile window's wall time and the phase's
 seconds.
+The measurement tools, after the fork's datasets and before the
+profiler (``measure_tools_phase``): each tool of
+``lidardetection_tpu_torch/tools/`` that counterparts a JAX measuring
+tool, through its ``main`` at reduced iterations, its launches counted
+(set to 0 before, read after), each kernel it runs launched, every number
+it returns finite, its headline on a line of its own: ``bench_input``
+(PointPillar B = 8, 0 and 8 workers), ``profile_stages`` (PointPillar B =
+8), ``profile_sparse`` (SECOND B = 8), ``profile_vsa`` (B = 8, 2048
+keypoints), ``microbench --case all`` (K1 bit-equal, K2 against numpy,
+the NMS walk's lists against the full-matrix oracle), ``microbench_rbconv``
+(K3 within 1e-4), ``microbench_select --case all``, ``probe_rcnn_refine``
+and ``ablate_approx`` (every variant evaluated) on a PV-RCNN checkpoint
+that 3 training steps write there; ``bench_kitti_eval`` runs meanwhile as
+two processes of its own (native at 3769 frames, numpy at 754).
+``profile_trace`` (PV-RCNN's eval step, B = 8) runs last in the profiler's
+section.
 The line before the last is the kernels' JSON (K5's entry with PointRCNN's
 two levels under ``pointrcnn``; K3's and K4's at VoxelResBackBone8x's
 shapes under ``cbgs``), preceded by the card's name and power limit; the
@@ -270,6 +290,14 @@ import time
 from pathlib import Path
 
 import numpy as np
+
+# the measuring code the port's tools share (the timer, the bound, the
+# forward split, the profiler reader, the NMS oracle)
+from lidardetection_tpu_torch.tools.measure import (
+    BF16_FLOP_PER_S, F32_FLOP_PER_S, HBM_BYTES_PER_S, bound_ms, conv_work,
+    cuda_ms, forward_split, full_matrix_nms, gpu_line, profile_run,
+    scatter_work, select_work, vfe_work,
+)
 
 CFG = 'tools/cfgs/kitti_models/pointpillar.yaml'
 CFG_SECOND = 'tools/cfgs/kitti_models/second.yaml'
@@ -306,9 +334,6 @@ FORK_LOADER_STEPS = 8  # steps timed from the loader, each fork config
 TOOL_SCANS = 4         # the tools' folder: scans of the KITTI tree's val split
 TOOL_SCENES = 8        # inference and the MOT benchmark: synthetic scenes
 CLI_SCENES, CLI_EPOCHS = 32, 2  # the training CLI's run: 8 steps an epoch
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
-F32_FLOP_PER_S = 67e12       # H100 SXM, float32 outside the tensor cores
-BF16_FLOP_PER_S = 989e12     # H100 SXM, dense bf16 on the tensor cores
 
 
 def check(ok, what):
@@ -316,41 +341,10 @@ def check(ok, what):
         raise RuntimeError(f'check failed: {what}')
 
 
-def gpu_line():
-    return subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-        capture_output=True, text=True, check=True).stdout.strip()
 
 
-def cuda_ms(fn, torch, iters=30, warmup=5, queued=True):
-    """Median time of fn() in ms over `iters` calls, from CUDA events
-    around each call, with a 64 MB write between calls so every call
-    finds the 50 MB L2 cold, as a request's first touch does.
-
-    queued=True holds the stream in a ~1 ms device sleep while the host
-    enqueues the events and fn's kernels, so the events time the device
-    work alone; queued=False times the call as a caller sees it, host
-    overhead between launches included."""
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device='cuda')
-    times = []
-    for i in range(warmup + iters):
-        flush.zero_()
-        if queued:
-            torch.cuda._sleep(2_000_000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        if i >= warmup:
-            times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
-def bound_ms(n_bytes, n_flop, flop_per_s=F32_FLOP_PER_S):
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flop / flop_per_s
-    return max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else 'operations'
 
 
 @contextlib.contextmanager
@@ -371,33 +365,6 @@ def recorded(owner, attr, calls):
         setattr(owner, attr, fn)
 
 
-def full_matrix_nms(torch, boxes, scores, valid, thresh, pre_maxsize,
-                    post_maxsize):
-    """The oracle of the NMS walk: per sample, of the `pre_maxsize` best
-    scores, the whole live x live IoU matrix (``boxes_iou_bev``, on the
-    card), then the greedy sweep on the host, rows in score order (ties to
-    the lower index). Returns a list of kept index lists into N."""
-    from lidardetection_tpu_torch.core.iou3d import boxes_iou_bev, top_k
-
-    if valid is None:
-        valid = torch.ones_like(scores, dtype=torch.bool)
-    out = []
-    for b, s, v in zip(boxes, scores, valid):
-        _, order = top_k(torch.where(v, s, -float('inf'))[None], pre_maxsize)
-        order = order[0][v[order[0]]]
-        bx = b[order, :7].contiguous()
-        sup = (boxes_iou_bev(bx, bx) > thresh).cpu().numpy()
-        removed = np.zeros(len(order), bool)
-        keep = []
-        for i in range(len(order)):
-            if removed[i]:
-                continue
-            keep.append(i)
-            if len(keep) == post_maxsize:
-                break
-            removed |= sup[i]
-        out.append(order[keep].tolist())
-    return out
 
 
 def make_clouds(det, n, seed):
@@ -460,7 +427,7 @@ def time_scatter(torch, feats, keys, n_slots):
 
     _, v, c = feats.shape
     kept = keys[0] < n_slots
-    n_kept = int(kept.sum())
+    n_kept, n_bytes = scatter_work(feats, keys, n_slots)
     rows_b = torch.zeros(n_kept, dtype=torch.long, device='cuda')
     rows_k, rows_f = keys[0][kept].long(), feats[0][kept]
 
@@ -468,16 +435,17 @@ def time_scatter(torch, feats, keys, n_slots):
         canvas = torch.zeros((1, n_slots, c), dtype=feats.dtype, device='cuda')
         canvas.index_put_((rows_b, rows_k), rows_f)
 
-    size = feats.element_size()
-    n_bytes = n_slots * c * size + v * 4 + n_kept * c * size
     canvas = torch.empty((1, n_slots, c), dtype=feats.dtype, device='cuda')
     row = {'shape': f'V={v} C={c} slots={n_slots} kept={n_kept}',
-           'ms': cuda_ms(lambda: scatter_rows(feats, keys, n_slots), torch),
+           'ms': cuda_ms(lambda: scatter_rows(feats, keys, n_slots)),
+           # the earlier timer's flush (a 64 MB write: a dirty L2)
+           'old_flush_ms': cuda_ms(lambda: scatter_rows(feats, keys, n_slots),
+                                   flush='dirty'),
            # a PyTorch fill of the same canvas: the writes alone
-           'fill_ms': cuda_ms(canvas.zero_, torch),
+           'fill_ms': cuda_ms(canvas.zero_),
            'plain_ms': cuda_ms(
-               lambda: scatter_rows_plain(feats, keys, n_slots), torch),
-           'library_ms': cuda_ms(library, torch), 'bytes': n_bytes}
+               lambda: scatter_rows_plain(feats, keys, n_slots)),
+           'library_ms': cuda_ms(library), 'bytes': n_bytes}
     row['bound_ms'], row['bound_by'] = bound_ms(n_bytes, 0)
     return row
 
@@ -501,16 +469,6 @@ def vfe_held(torch, what, vox, centers, pb, counts, w4, shift):
     return worst
 
 
-def vfe_work(counts, p, c):
-    """K1's bytes (the counts, each live pillar's center and bias row and
-    its points below the count read once, the output written once in
-    bf16, the weights) and FLOP, for these counts."""
-    n = counts.numel()
-    n_pts = int(counts.clamp(0, p).sum())
-    n_live = int((counts > 0).sum())
-    n_bytes = (n * 4 + n_live * (16 + c * 4) + n_pts * 16 + n * c * 2
-               + 4 * c * 2 + c * 4)
-    return n_bytes, n_pts * c * 8 + n * c * 3
 
 
 def pillar_kernel_phase(torch, det):
@@ -611,15 +569,18 @@ def pillar_kernel_phase(torch, det):
           'source': 'lidardetection_tpu_torch/csrc/vfe.cu',
           'replaces': 'lidardetection_tpu/ops/vfe_tpu.py:78',
           'max_abs_err': err['pillar_vfe'],
-          'ms': cuda_ms(calls['pillar_vfe'], torch),
-          'plain_ms': cuda_ms(lambda: pillar_vfe_plain(*a1), torch),
+          'ms': cuda_ms(calls['pillar_vfe']),
+          'old_flush_ms': cuda_ms(calls['pillar_vfe'], flush='dirty'),
+          'plain_ms': cuda_ms(lambda: pillar_vfe_plain(*a1)),
           'library_ms': None}
     k1['bound_ms'], k1['bound_by'] = bound_ms(k1_bytes, k1_flop)
     # and at B = 4, where the bound stands above the timing floor
     a4 = (vox, centers, pb, counts, w4.bfloat16(), shift)
     n_bytes, n_flop = vfe_work(counts, p, c)
-    k1['batch4'] = {'ms': cuda_ms(lambda: pillar_vfe(*a4), torch),
-                    'plain_ms': cuda_ms(lambda: pillar_vfe_plain(*a4), torch),
+    k1['batch4'] = {'ms': cuda_ms(lambda: pillar_vfe(*a4)),
+                    'old_flush_ms': cuda_ms(lambda: pillar_vfe(*a4),
+                                            flush='dirty'),
+                    'plain_ms': cuda_ms(lambda: pillar_vfe_plain(*a4)),
                     'bytes': n_bytes}
     k1['batch4']['bound_ms'], k1['batch4']['bound_by'] = bound_ms(n_bytes, n_flop)
     # what the rows alone cost under the same timing: K1 with no live
@@ -628,10 +589,10 @@ def pillar_kernel_phase(torch, det):
     for row, args in ((k1, a1), (k1['batch4'], a4)):
         none = torch.zeros_like(args[3])
         row['no_live_ms'] = cuda_ms(
-            lambda: pillar_vfe(*args[:3], none, *args[4:]), torch)
+            lambda: pillar_vfe(*args[:3], none, *args[4:]))
         filled = torch.empty((args[0].shape[0], v, c), dtype=torch.bfloat16,
                              device='cuda')
-        row['fill_ms'] = cuda_ms(filled.zero_, torch)
+        row['fill_ms'] = cuda_ms(filled.zero_)
     print(f'pillar_vfe B={b4}: device {k1["batch4"]["ms"]:.4f} ms, plain '
           f'{k1["batch4"]["plain_ms"]:.4f} ms, bound '
           f'{k1["batch4"]["bound_ms"]:.4f} ms ({n_bytes} bytes); no live '
@@ -644,7 +605,7 @@ def pillar_kernel_phase(torch, det):
           'max_abs_err': err['scatter_rows'],
           **time_scatter(torch, f1, k1keys, n_slots)}
     for k, nbytes in ((k1, k1_bytes), (k2, k2['bytes'])):
-        call = cuda_ms(calls[k['name']], torch, queued=False)
+        call = cuda_ms(calls[k['name']], queued=False)
         print(f'{k["name"]} B=1: device {k["ms"]:.4f} ms (call with host '
               f'overhead {call:.4f} ms), plain {k["plain_ms"]:.4f} ms, '
               f'library {k["library_ms"]}, zero fill of the output '
@@ -713,14 +674,7 @@ def conv_timing(torch, n, what, f, rb, w, valid):
           f'rulebook_conv {n} {what}: max error {err} against plain '
           f'(max|want| {top})')
     k, c_in, c_out = wd.shape
-    hit = (rb >= 0) & (rb < fd.shape[1]) & valid[..., None]
-    hits, live = int(hit.sum()), int(valid.sum())
-    flat = rb.long() + torch.arange(rb.shape[0], device=rb.device)[
-        :, None, None] * fd.shape[1]
-    rows_read = int(torch.unique(flat[hit]).numel())
-    n_bytes = (live * k * 4 + valid.numel() + rows_read * c_in * fd.element_size()
-               + wd.numel() * wd.element_size() + valid.numel() * c_out * 4)
-    n_flop = 2 * hits * c_in * c_out
+    live, hits, n_bytes, n_flop = conv_work(fd, rb, wd, valid)
     rate = BF16_FLOP_PER_S if fd.dtype == torch.bfloat16 else F32_FLOP_PER_S
     skips = conv_tile_skips(rb, valid, fd.shape[1])
     row = {'layer': n, 'K': k, 'C_in': c_in, 'C_out': c_out,
@@ -729,9 +683,11 @@ def conv_timing(torch, n, what, f, rb, w, valid):
            'pairs_skipped': skips['pairs_skipped'] / max(skips['pairs'], 1),
            'fragments_skipped': skips['fragments_skipped']
            / max(skips['fragments'], 1),
-           'ms': cuda_ms(lambda: rulebook_conv(fd, rb, wd, valid), torch),
+           'ms': cuda_ms(lambda: rulebook_conv(fd, rb, wd, valid)),
+           'old_flush_ms': cuda_ms(lambda: rulebook_conv(fd, rb, wd, valid),
+                                   flush='dirty'),
            'plain_ms': cuda_ms(
-               lambda: rulebook_conv_plain(fd, rb, wd, valid), torch),
+               lambda: rulebook_conv_plain(fd, rb, wd, valid)),
            'bytes_ms': n_bytes / HBM_BYTES_PER_S * 1e3,
            'ops_ms': n_flop / rate * 1e3}
     row['bound_ms'], row['bound_by'] = bound_ms(n_bytes, n_flop, rate)
@@ -810,7 +766,7 @@ def sparse_kernel_phase(torch, det):
                               layer.dtype or torch.float32), valid[:1])
               for n, (layer, f, valid, rb) in enumerate(records, 1)]
     total = {key: sum(r[key] for r in shapes) for key in
-             ('ms', 'plain_ms', 'bytes_ms', 'ops_ms')}
+             ('ms', 'old_flush_ms', 'plain_ms', 'bytes_ms', 'ops_ms')}
     bound = sum(r['bound_ms'] for r in shapes)
     print(f'rulebook_conv, the 12 launches of a request: device '
           f'{total["ms"]:.4f} ms, plain {total["plain_ms"]:.4f} ms, bound '
@@ -821,10 +777,11 @@ def sparse_kernel_phase(torch, det):
           'max_abs_err': err,
           # per call: the mean over the 12 launches of a request
           'ms': total['ms'] / 12, 'plain_ms': total['plain_ms'] / 12,
-          'bound_ms': bound / 12,
+          'old_flush_ms': total['old_flush_ms'] / 12, 'bound_ms': bound / 12,
           'bound_by': 'bytes' if total['bytes_ms'] >= total['ops_ms']
           else 'operations',
-          'library_ms': None, 'per_request_ms': total['ms'], 'layers': shapes}
+          'library_ms': None, 'per_request_ms': total['ms'],
+          'per_request_old_flush_ms': total['old_flush_ms'], 'layers': shapes}
 
     # K2 at SECOND's shape: the conv_out table into 2 x 200 x 176 slots
     st4 = out['multi_scale_3d_features']['x_conv4']
@@ -933,98 +890,8 @@ def serve_phase(torch, det, clouds, per_request, earlier=None):
     return total
 
 
-def forward_split(torch, det, points, repeats=3, functions=(), modules=()):
-    """Where a request's forward goes, by module: host clock around each
-    top-level module (and around the sparse layers inside the 3D backbone,
-    around each module of `modules`, (label, module), the calls of one
-    label summed, and around each call of the functions of `functions`,
-    (owner, attribute, labels): the n-th call of a forward is labelled
-    labels[n]) with the device drained at both ends, median of
-    `repeats`."""
-    from lidardetection_tpu_torch.models.backbones_3d.spconv_backbone import (
-        SparseConvLayer,
-    )
-
-    spans, hooks, t0 = {}, [], {}
-    wrapped, calls = [], {}
-
-    def timed(attr, labels, fn):
-        def run(*args, **kwargs):
-            name = labels[calls.get(attr, 0)]
-            calls[attr] = calls.get(attr, 0) + 1
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            result = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            spans[name] = spans.get(name, 0.0) + time.perf_counter() - start
-            return result
-        return run
-
-    def watch(name, module):
-        def before(m, args):
-            torch.cuda.synchronize()
-            t0[name] = time.perf_counter()
-
-        def after(m, args, result):
-            torch.cuda.synchronize()
-            spans[name] = spans.get(name, 0.0) + time.perf_counter() - t0[name]
-        hooks.extend([module.register_forward_pre_hook(before),
-                      module.register_forward_hook(after)])
-
-    for name, module in det.model.named_children():
-        watch(name, module)
-    for module in det.model.modules():
-        if isinstance(module, SparseConvLayer):
-            watch('sparse layers', module)
-    for name, module in modules:
-        watch(name, module)
-    for owner, attr, labels in functions:
-        wrapped.append((owner, attr, getattr(owner, attr)))
-        setattr(owner, attr, timed(attr, labels, getattr(owner, attr)))
-    runs = []
-    try:
-        for _ in range(repeats):
-            spans.clear()
-            calls.clear()
-            det.forward(det.make_batch([points]))
-            runs.append(dict(spans))
-    finally:
-        for hook in hooks:
-            hook.remove()
-        for owner, attr, fn in wrapped:
-            setattr(owner, attr, fn)
-    med = {k: float(np.median([r[k] for r in runs])) * 1e3 for k in runs[0]}
-    if 'sparse layers' in med:
-        med['rulebooks and scatter'] = med['backbone_3d'] - med['sparse layers']
-    print('forward split, ms (device drained around each module): '
-          + ', '.join(f'{k} {v:.2f}' for k, v in med.items()), flush=True)
-    return med
 
 
-def profile_run(torch, what, fn):
-    """fn() under torch.profiler: the device's busy share of the call and
-    the kernels that take its time. Runs after every timed phase: the
-    profiler's tracing callbacks stay attached once it has been used and
-    slow every later launch on the host."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    busy = sum(r[0] for r in rows)
-    if not rows:
-        print(f'profiler, {what}: no device time recorded', flush=True)
-        return
-    print(f'profiled {what}: wall {wall:.2f} ms (profiler on), device '
-          f'kernels {busy:.2f} ms, idle share {1 - busy / wall:.3f}', flush=True)
-    for ms, count, key in sorted(rows, reverse=True)[:12]:
-        print(f'  {ms:8.3f} ms  x{count:<5d} {key[:90]}', flush=True)
 
 
 def profile_request(torch, det, points):
@@ -1032,7 +899,7 @@ def profile_request(torch, det, points):
         preds = det.postprocess(det.forward(det.make_batch([points])))
         preds['pred_boxes'].cpu()
 
-    profile_run(torch, f'{det.cfg["MODEL"]["NAME"]} request', request)
+    profile_run(f'{det.cfg["MODEL"]["NAME"]} request', request)
 
 
 def compare_phase(torch, det, cfg_file, clouds):
@@ -1405,7 +1272,7 @@ def pvrcnn_step_split(torch, trainer, batch):
           f'of the anchors), kept {num.tolist()} (post_maxsize '
           f'{kw["post_maxsize"]}, thresh {kw["thresh"]})', flush=True)
     t0 = time.perf_counter()
-    want = full_matrix_nms(torch, boxes, scores, kw.get('valid_mask'),
+    want = full_matrix_nms(boxes, scores, kw.get('valid_mask'),
                            kw['thresh'], kw['pre_maxsize'], kw['post_maxsize'])
     oracle_ms = (time.perf_counter() - t0) * 1e3
     got = [idx[b, :int(num[b])].tolist() for b in range(len(want))]
@@ -1600,7 +1467,8 @@ def weight_gradient_phase(torch, trainer, batch, backward_ms):
           'scatter_rows backward equals the gather')
 
     # times at the main path's shape: a step's batch, the model's dtype
-    shapes, total = [], {'ms': 0.0, 'plain_ms': 0.0, 'bytes_ms': 0.0,
+    shapes, total = [], {'ms': 0.0, 'old_flush_ms': 0.0, 'plain_ms': 0.0,
+                         'bytes_ms': 0.0,
                          'ops_ms': 0.0}
     for n, ((layer, _, valid, _), (f, rb, g)) in enumerate(zip(layers, calls), 1):
         k, c_in, c_out = layer.kernel.shape
@@ -1614,15 +1482,18 @@ def weight_gradient_phase(torch, trainer, batch, backward_ms):
                'workspace_bytes': n_splits * k * c_in * c_out * 4,
                # the (row, offset) entries that are never read or multiplied
                'entries_skipped': 1 - hits / max(rb.shape[0] * rb.shape[1] * k, 1),
-               'ms': cuda_ms(lambda: rulebook_conv_dw(f, rb, g), torch),
+               'ms': cuda_ms(lambda: rulebook_conv_dw(f, rb, g)),
+               'old_flush_ms': cuda_ms(lambda: rulebook_conv_dw(f, rb, g),
+                                       flush='dirty'),
                'plain_ms': cuda_ms(
-                   lambda: rulebook_conv_dw_plain(f, rb, g), torch, iters=10,
+                   lambda: rulebook_conv_dw_plain(f, rb, g), iters=10,
                    warmup=2)}
         check(row['workspace_bytes'] <= DW_WORKSPACE_BYTES,
               f'K4 layer {n}: workspace {row["workspace_bytes"]} bytes')
         row['bound_ms'], row['bound_by'] = bound_ms(n_bytes, n_flop, rate)
         row['tflop_per_s_on_hits'] = n_flop / row['ms'] * 1e-9
         total['ms'] += row['ms']
+        total['old_flush_ms'] += row['old_flush_ms']
         total['plain_ms'] += row['plain_ms']
         total['bytes_ms'] += n_bytes / HBM_BYTES_PER_S * 1e3
         total['ops_ms'] += n_flop / rate * 1e3
@@ -1650,7 +1521,7 @@ def weight_gradient_phase(torch, trainer, batch, backward_ms):
     step_rows = [conv_timing(torch, name, f'B={f.shape[0]}', f, rb, w, valid)
                  for name, (f, rb, w, valid) in zip(names, convs)]
     k3_step = {key: sum(r[key] for r in step_rows)
-               for key in ('ms', 'plain_ms', 'bound_ms')}
+               for key in ('ms', 'old_flush_ms', 'plain_ms', 'bound_ms')}
     print(f'rulebook_conv, the 23 launches of a SECOND step (B={TRAIN_BATCH}): '
           f'device {k3_step["ms"]:.4f} ms (12 forward '
           f'{sum(r["ms"] for r in step_rows[:12]):.4f}, 11 df '
@@ -1665,12 +1536,14 @@ def weight_gradient_phase(torch, trainer, batch, backward_ms):
             'max_abs_err': err, 'max_rel_err': rel,
             # per call: the mean over the 12 launches of a training step
             'ms': total['ms'] / 12, 'plain_ms': total['plain_ms'] / 12,
-            'bound_ms': bound / 12,
+            'old_flush_ms': total['old_flush_ms'] / 12, 'bound_ms': bound / 12,
             'bound_by': 'bytes' if total['bytes_ms'] >= total['ops_ms']
             else 'operations',
             'library_ms': None, 'per_step_ms': total['ms'],
+            'per_step_old_flush_ms': total['old_flush_ms'],
             'share_of_backward': total['ms'] / backward_ms, 'layers': shapes}, \
         {'per_step_ms': k3_step['ms'], 'per_step_plain_ms': k3_step['plain_ms'],
+         'per_step_old_flush_ms': k3_step['old_flush_ms'],
          'per_step_bound_ms': k3_step['bound_ms'], 'step_layers': step_rows}
 
 
@@ -1694,30 +1567,6 @@ def record_ball_selects(run):
     return calls, out
 
 
-def select_work(torch, args):
-    """K5's live (centre, candidate) pairs, and the bytes and FLOP its bound
-    counts: the distinct table rows the runs cover, each read once (xyz and
-    orig, 16 bytes a row; runs never reach the padding rows past the valid
-    count, and runs of different centres overlap), the centres, the runs and
-    the outputs; 9 FLOP a live pair (3 differences, 3 squares, 2 sums, 1
-    compare)."""
-    xyz, orig, start, end, centers, radii, nsamples, max_run = args
-    b, n = orig.shape
-    m, n_row = start.shape[1:]
-    s = start.long().reshape(b, -1)
-    e = torch.minimum(end, start + max_run).long().reshape(b, -1)
-    live = (e > s).long()
-    pairs = int(((e - s) * live).sum())
-    most = int(((e - s) * live).reshape(b, m, n_row).sum(-1).max())
-    # +1 where a run starts, -1 where it ends: a row is read where the
-    # running sum is above 0
-    edge = torch.zeros((b, n + 1), dtype=torch.long, device=orig.device)
-    edge.scatter_add_(1, s.clamp(0, n), live)
-    edge.scatter_add_(1, e.clamp(0, n), -live)
-    rows_read = int((edge.cumsum(1)[:, :n] > 0).sum())
-    n_bytes = rows_read * 16 + b * m * 12 + 2 * b * m * n_row * 4 \
-        + b * m * sum(nsamples) * 4
-    return pairs, rows_read, n_bytes, 9 * pairs, most
 
 
 def select_held(torch, args, what):
@@ -1756,15 +1605,17 @@ def select_timings(torch, named_args):
 
     rows = []
     for src, args in named_args:
-        pairs, rows_read, n_bytes, n_flop, most = select_work(torch, args)
+        pairs, rows_read, n_bytes, n_flop, most = select_work(args)
         row = {'source': src, 'n_row': args[2].shape[-1],
                'rows': args[1].shape[1], 'centres': args[4].shape[1],
                'rows_read': rows_read, 'most_rows_a_centre': most,
                'radii': list(args[5]),
                'nsamples': list(args[6]), 'live_pairs': pairs,
                'bytes': n_bytes, 'flop': n_flop,
-               'ms': cuda_ms(lambda: ball_select(*args), torch),
-               'plain_ms': cuda_ms(lambda: ball_select_plain(*args), torch)}
+               'ms': cuda_ms(lambda: ball_select(*args)),
+               'old_flush_ms': cuda_ms(lambda: ball_select(*args),
+                                       flush='dirty'),
+               'plain_ms': cuda_ms(lambda: ball_select_plain(*args))}
         row['bound_ms'], row['bound_by'] = bound_ms(n_bytes, n_flop)
         rows.append(row)
         print(f'ball_select {src} B=1: n_row {row["n_row"]}, {row["rows"]} rows '
@@ -1857,7 +1708,8 @@ def select_kernel_phase(torch, det):
                      'raw_points, orig descending along each run')[0])
 
     rows = select_timings(torch, zip(sources, ones))
-    total = {key: sum(r[key] for r in rows) for key in ('ms', 'plain_ms')}
+    total = {key: sum(r[key] for r in rows)
+             for key in ('ms', 'old_flush_ms', 'plain_ms')}
     total['bytes_ms'] = sum(r['bytes'] for r in rows) / HBM_BYTES_PER_S * 1e3
     total['ops_ms'] = sum(r['flop'] for r in rows) / F32_FLOP_PER_S * 1e3
     bound = sum(r['bound_ms'] for r in rows)
@@ -1870,10 +1722,11 @@ def select_kernel_phase(torch, det):
             'max_abs_err': max(errs),  # the largest of every case above
             # per call: the mean over the 5 launches of a request
             'ms': total['ms'] / 5, 'plain_ms': total['plain_ms'] / 5,
-            'bound_ms': bound / 5,
+            'old_flush_ms': total['old_flush_ms'] / 5, 'bound_ms': bound / 5,
             'bound_by': 'bytes' if total['bytes_ms'] >= total['ops_ms']
             else 'operations',
-            'library_ms': None, 'per_request_ms': total['ms'], 'sources': rows}
+            'library_ms': None, 'per_request_ms': total['ms'],
+            'per_request_old_flush_ms': total['old_flush_ms'], 'sources': rows}
 
 
 def pvrcnn_split(torch, det, points, k5):
@@ -1884,7 +1737,7 @@ def pvrcnn_split(torch, det, points, k5):
     from lidardetection_tpu_torch.ops import pointnet2
 
     sources = det.model.pfe.sa_sources
-    med = forward_split(torch, det, points, functions=(
+    med = forward_split(det, points, functions=(
         (pointnet2, 'fps', ['fps']),
         (pointnet2, 'ball_query_multi', [f'ball query {s}' for s in sources]),
         (roi_head_utils, 'proposal_layer', ['proposal layer'])))
@@ -2491,7 +2344,7 @@ def request_kernel_phase(torch, det, points, label, groups, inverse_from=None):
                         valid)
             for name, (layer, f, valid, rb) in zip(names, records)]
     total = {key: sum(r[key] for r in rows)
-             for key in ('ms', 'plain_ms', 'bound_ms')}
+             for key in ('ms', 'old_flush_ms', 'plain_ms', 'bound_ms')}
     parts, start = [], 0
     for name, count in groups:
         parts.append(f'{name} {count}: '
@@ -2502,7 +2355,9 @@ def request_kernel_phase(torch, det, points, label, groups, inverse_from=None):
           f'{err:.3g}): device {total["ms"]:.4f} ms ({", ".join(parts)}), '
           f'plain {total["plain_ms"]:.4f} ms, bound {total["bound_ms"]:.4f} ms',
           flush=True)
-    return {'per_request_ms': total['ms'], 'per_request_plain_ms':
+    return {'per_request_ms': total['ms'],
+            'per_request_old_flush_ms': total['old_flush_ms'],
+            'per_request_plain_ms':
             total['plain_ms'], 'per_request_bound_ms': total['bound_ms'],
             'max_abs_err': err, 'layers': rows}
 
@@ -2525,7 +2380,7 @@ def parta2_split(torch, det, points, repeats=3):
         parta2_head, roi_head_utils,
     )
 
-    med = forward_split(torch, det, points, functions=(
+    med = forward_split(det, points, functions=(
         (roi_head_utils, 'proposal_layer', ['proposal layer']),
         (parta2_head, 'roi_point_sample', ['RoI point sample']),
         (parta2_head, 'roiaware_pool3d',
@@ -2627,10 +2482,9 @@ def avg_pool_cost(torch, det, points):
     row = {}
     for name, fn in (('sorted', ported), ('index_add', index_added)):
         leaf = feats.detach().clone().requires_grad_()
-        row[f'{name}_ms'] = cuda_ms(lambda: fn(feats), torch, queued=False)
+        row[f'{name}_ms'] = cuda_ms(lambda: fn(feats), queued=False)
         row[f'{name}_with_backward_ms'] = cuda_ms(
-            lambda: torch.autograd.grad((fn(leaf) * ct).sum(), leaf),
-            torch, queued=False)
+            lambda: torch.autograd.grad((fn(leaf) * ct).sum(), leaf), queued=False)
     print(f'avg pool of a Part-A2 request ({feats.shape[1]} rows of '
           f'{feats.shape[2]} channels, {sample[0].shape[1]} RoIs x '
           f'{sample[0].shape[2]} samples): index_add_ within {e:.3g} of the '
@@ -2730,12 +2584,13 @@ def step_kernel_phase(torch, trainer, batch, label, n_layers, n_df,
         rate = BF16_FLOP_PER_S if f.dtype == torch.bfloat16 else F32_FLOP_PER_S
         row = {'layer': n, 'K': k, 'C_in': c_in, 'C_out': c_out,
                'live_rows': live, 'hits': hits, 'bytes': n_bytes,
-               'ms': cuda_ms(lambda: rulebook_conv_dw(f, rb, g), torch),
-               'plain_ms': cuda_ms(lambda: rulebook_conv_dw_plain(f, rb, g),
-                                   torch, iters=5, warmup=1)}
+               'ms': cuda_ms(lambda: rulebook_conv_dw(f, rb, g)),
+               'old_flush_ms': cuda_ms(lambda: rulebook_conv_dw(f, rb, g),
+                                       flush='dirty'),
+               'plain_ms': cuda_ms(lambda: rulebook_conv_dw_plain(f, rb, g), iters=5, warmup=1)}
         row['bound_ms'], row['bound_by'] = bound_ms(n_bytes, n_flop, rate)
         shapes.append(row)
-    k4 = {key: sum(r[key] for r in shapes) for key in ('ms', 'plain_ms',
+    k4 = {key: sum(r[key] for r in shapes) for key in ('ms', 'old_flush_ms', 'plain_ms',
                                                        'bound_ms')}
     print(f'rulebook_conv_dw, the {n_layers} launches of a {label} step '
           f'(B={b_step}; bf16 and f32, B=1 and B={b_step} within 1e-4 * '
@@ -2748,7 +2603,7 @@ def step_kernel_phase(torch, trainer, batch, label, n_layers, n_df,
         [f'df {n}' for n in range(1, n_df + 1)]
     rows = [conv_timing(torch, name, f'{label} step B={f.shape[0]}', f, rb, w,
                         valid) for name, (f, rb, w, valid) in zip(names, convs)]
-    k3 = {key: sum(r[key] for r in rows) for key in ('ms', 'plain_ms',
+    k3 = {key: sum(r[key] for r in rows) for key in ('ms', 'old_flush_ms', 'plain_ms',
                                                      'bound_ms')}
     print(f'rulebook_conv, the {n_layers + n_df} launches of a {label} step '
           f'(B={b_step}): device {k3["ms"]:.4f} ms ({n_layers} forward '
@@ -2756,9 +2611,11 @@ def step_kernel_phase(torch, trainer, batch, label, n_layers, n_df,
           f'{sum(r["ms"] for r in rows[n_layers:]):.4f}), plain '
           f'{k3["plain_ms"]:.4f} ms, bound {k3["bound_ms"]:.4f} ms', flush=True)
     return ({'per_step_ms': k4['ms'], 'per_step_plain_ms': k4['plain_ms'],
+             'per_step_old_flush_ms': k4['old_flush_ms'],
              'per_step_bound_ms': k4['bound_ms'], 'max_abs_err': err,
              'layers': shapes},
             {'per_step_ms': k3['ms'], 'per_step_plain_ms': k3['plain_ms'],
+             'per_step_old_flush_ms': k3['old_flush_ms'],
              'per_step_bound_ms': k3['bound_ms'], 'step_layers': rows})
 
 
@@ -2827,8 +2684,7 @@ def pointrcnn_split(torch, det, points):
     # fp_layers.0 is the deepest: level 4 onto level 3
     fps = [(f'FP{4 - i}', m) for i, m in enumerate(backbone.fp_layers)]
     roi_sa = [(f'RoI SA{i + 1}', m) for i, m in enumerate(head.sa_layers)]
-    med = forward_split(
-        torch, det, points,
+    med = forward_split(det, points,
         modules=levels + fps + roi_sa + [('RoI FCs', m) for m in head.fc_heads],
         functions=((roi_head_utils, 'proposal_layer', ['proposal layer']),
                    (pointrcnn_head, 'roipoint_pool3d', ['RoI pool'])))
@@ -4220,6 +4076,209 @@ def train_cli_phase(torch, wrappers, tmp):
     return runs
 
 
+MEASURE_SCENES, MEASURE_BATCH = 8, 4  # probe_rcnn_refine, ablate_approx
+MEASURE_TRAIN_STEPS = 3  # the PV-RCNN steps that write their checkpoint
+KITTI_EVAL_FRAMES = 3769     # bench_kitti_eval, the native host library
+KITTI_EVAL_NUMPY_FRAMES = 754  # and its numpy plain version, a fifth
+
+
+def finite_numbers(value):
+    """Every number in a tool's result tree is finite (None allowed)."""
+    if isinstance(value, dict):
+        return all(finite_numbers(v) for v in value.values())
+    if isinstance(value, (list, tuple)):
+        return all(finite_numbers(v) for v in value)
+    if isinstance(value, (int, float)) and not isinstance(value, bool):
+        return bool(np.isfinite(value))
+    return True
+
+
+def tool_run(module, argv, label, runs, expected):
+    """module.main(argv) as one run of a main path: every launch count set
+    to 0 just before and read just after into runs[label]; each kernel of
+    `expected` launched, every number printed finite. Returns main's
+    result and its seconds."""
+    from lidardetection_tpu_torch.tools.measure import (
+        launches, reset_launches,
+    )
+
+    reset_launches()
+    t0 = time.perf_counter()
+    result = module.main(argv)
+    seconds = time.perf_counter() - t0
+    runs[label] = launches()
+    check(finite_numbers(result), f'{label}: finite numbers')
+    for name in expected:
+        check(runs[label][name] > 0, f'{label}: {name} launched')
+    return result, seconds
+
+
+def kitti_eval_processes():
+    """``bench_kitti_eval`` as users run it, one process each for the
+    native host library at the val split's 3769 frames and for its numpy
+    plain version at a fifth of them (~4 minutes at 3769 on one core): it
+    launches no kernel, so both run on the host's cores while the card's
+    tools run here."""
+    import os
+
+    cmd = [sys.executable, '-m', 'lidardetection_tpu_torch.tools.bench_kitti_eval']
+    procs = {}
+    for host, frames in (('native', KITTI_EVAL_FRAMES),
+                         ('numpy', KITTI_EVAL_NUMPY_FRAMES)):
+        env = {**os.environ, 'LIDARDET_TORCH_PLAIN_HOST': '1' if host == 'numpy'
+               else '0'}
+        procs[host] = subprocess.Popen(
+            cmd + ['--frames', str(frames)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    return procs
+
+
+def measure_tools_phase(torch, tmp):
+    """The measurement and diagnostic tools (``lidardetection_tpu_torch/
+    tools/``, each the counterpart of JAX tools) on the card, through their
+    ``main`` at reduced iterations, before the first profiler phase (a
+    profiler's callbacks slow every later launch in a process): each run a
+    main path with its launch counts set to 0 before and read after, each
+    kernel it runs launched, every number it returns finite, its headline
+    on a line of its own. ``bench_kitti_eval`` runs as two processes
+    beside them (``kitti_eval_processes``). ``probe_rcnn_refine`` and
+    ``ablate_approx`` read a PV-RCNN checkpoint written here by
+    MEASURE_TRAIN_STEPS training steps under the harness's edits: their IoUs
+    and APs drive the path, they measure no trained model. Returns the runs'
+    launches and the tools' seconds."""
+    from lidardetection_tpu_torch.tools import bench_input
+
+    t_phase = time.perf_counter()
+    runs, seconds = {}, {}
+
+    # the loader's rate first, before the protocol's processes share the
+    # host's cores
+    rows = bench_input.main(['--batch_size', '8', '--num_scenes', '48',
+                             '--batches', '4', '--workers', '0', '8'])
+    check(all(r['value'] and np.isfinite(r['value']) for r in rows),
+          'bench_input: finite scans/s')
+    print('measure tool bench_input: scans/s ' + ', '.join(
+        f'{r["workers"]} workers {r["value"]}' for r in rows), flush=True)
+    kitti = kitti_eval_processes()
+    try:
+        return measure_tools_on_card(torch, tmp, runs, seconds, kitti,
+                                     t_phase)
+    finally:
+        for proc in kitti.values():  # ended already, unless a check failed
+            proc.kill()
+            proc.wait()
+
+
+def measure_tools_on_card(torch, tmp, runs, seconds, kitti, t_phase):
+    """`measure_tools_phase`'s tools after bench_input, beside the
+    protocol's processes `kitti`, whose results it reads last."""
+    from lidardetection_tpu_torch.config import cfg_from_yaml_file
+    from lidardetection_tpu_torch.tools import (
+        ablate_approx, microbench, microbench_rbconv, microbench_select,
+        probe_rcnn_refine, profile_sparse, profile_stages, profile_vsa,
+    )
+    from lidardetection_tpu_torch.train import Trainer
+    from lidardetection_tpu_torch.train_to_ap import overfit_config
+    from lidardetection_tpu_torch.utils.checkpoint import save_checkpoint
+
+    k1, k2, k3, k5 = ('pillar_vfe', 'scatter_rows', 'rulebook_conv',
+                      'ball_select')
+
+    def headline(name, text):
+        print(f'measure tool {name}: {text}', flush=True)
+
+    row, seconds['profile_stages'] = tool_run(
+        profile_stages, ['--batch_size', '8', '--iters', '5'],
+        'tools: profile_stages', runs, (k1, k2))
+    headline('profile_stages', 'PointPillar B=8, cum ms ' + ', '.join(
+        f'{name} {ms:.3f}' for name, ms, _ in row['stages']))
+
+    row, seconds['profile_sparse'] = tool_run(
+        profile_sparse, ['--batch_size', '8'], 'tools: profile_sparse', runs,
+        (k3, k2))
+    headline('profile_sparse', f'SECOND B=8, K3 conv total '
+             f'{row["conv_total_ms"]:.4f} ms a batch; s2d (K2) '
+             f'{row["s2d_ms"]:.4f} ms, bound {row["s2d_bound_ms"]:.4f}; per op '
+             + ', '.join(f'{r[0]} {r[5]:.4f} (bound {r[6]:.4f})'
+                         for r in row['layers']))
+
+    row, seconds['profile_vsa'] = tool_run(
+        profile_vsa, ['--iters', '5'], 'tools: profile_vsa', runs, (k5,))
+    headline('profile_vsa', 'B=8, M=2048, ms ' + ', '.join(
+        f'{label} {ms:.4f}' for label, ms, _ in row['rows']))
+
+    row, seconds['microbench'] = tool_run(
+        microbench, ['--case', 'all', '--iters', '5'], 'tools: microbench',
+        runs, (k1, k2))
+    check(row['vfe']['bit_equal'] and row['scatter']['max_abs_err'] == 0
+          and row['nms']['kept_equal'],
+          'microbench: K1 bit-equal, K2 against numpy, the NMS walk\'s lists')
+    headline('microbench', json.dumps({
+        'conv_blocks_tflop_per_s': {r['case']: round(r['tflop_per_s'], 1)
+                                    for r in row['conv_blocks']},
+        'conv_ms': {r['shape']: r['ms'] for r in row['conv']},
+        'matmul_tflop_per_s': {r['shape']: round(r['tflop_per_s'], 1)
+                               for r in row['matmul']},
+        'vfe': {k: row['vfe'][k] for k in ('ms', 'plain_ms', 'bound_ms')},
+        'scatter': {k: row['scatter'][k] for k in
+                    ('ms', 'plain_ms', 'library_ms', 'fill_ms', 'bound_ms')},
+        'nms': {k: row['nms'][k] for k in ('ms', 'full_matrix_ms')}}))
+
+    row, seconds['microbench_rbconv'] = tool_run(
+        microbench_rbconv, ['--iters', '10'], 'tools: microbench_rbconv', runs,
+        (k3,))
+    check(row['max_abs_err'] <= 1e-4 * row['max_abs_plain'],
+          'microbench_rbconv: K3 within 1e-4 of its plain version')
+    headline('microbench_rbconv', f'K3 {row["ms"]:.4f} ms, plain '
+             f'{row["plain_ms"]:.4f}, bound {row["bound_ms"]:.4f}')
+
+    row, seconds['microbench_select'] = tool_run(
+        microbench_select, ['--case', 'all', '--iters', '5'],
+        'tools: microbench_select', runs, (k5,))
+    headline('microbench_select', json.dumps(
+        {case: {label: round(ms, 4) for label, ms, _ in rows_}
+         for case, rows_ in row.items() if isinstance(rows_, list)}))
+
+    # the checkpoint of probe_rcnn_refine and ablate_approx
+    t0 = time.perf_counter()
+    cfg = overfit_config(cfg_from_yaml_file(CFG_PVRCNN))
+    trainer = Trainer(cfg, device='cuda', seed=SEED, total_steps=1000)
+    dataset = trainer.dataset(MEASURE_SCENES, seed=SEED)
+    for i in range(MEASURE_TRAIN_STEPS):
+        trainer.step(trainer.make_batch([dataset[2 * i], dataset[2 * i + 1]]))
+    ckpt = tmp / 'pvrcnn_ckpt'
+    save_checkpoint(trainer.state, ckpt, MEASURE_TRAIN_STEPS)
+    del trainer
+    seconds['pvrcnn checkpoint'] = time.perf_counter() - t0
+    common = ['--ckpt_dir', str(ckpt), '--scenes', str(MEASURE_SCENES),
+              '--batch_size', str(MEASURE_BATCH)]
+
+    row, seconds['probe_rcnn_refine'] = tool_run(
+        probe_rcnn_refine, common + ['--batches', '1'],
+        'tools: probe_rcnn_refine', runs, (k3, k2, k5))
+    headline('probe_rcnn_refine', f'{len(row["rows"])} rows (class, set, n, '
+             f'iou before, after, delta, recall@0.7 before, after): '
+             f'{row["rows"]}')
+    row, seconds['ablate_approx'] = tool_run(
+        ablate_approx, common + ['--output_dir', str(tmp / 'ablate')],
+        'tools: ablate_approx', runs, (k3, k2, k5))
+    check(not any('error' in r for r in row['rows'].values()),
+          f'ablate_approx: every variant evaluated ({row["rows"]})')
+    headline('ablate_approx', json.dumps({'rows': row['rows'],
+                                          'deltas': row['deltas']}))
+
+    for host, proc in kitti.items():
+        out, err = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f'bench_kitti_eval ({host}) exit 0: {err[-2000:]}')
+        result = json.loads(out.strip().splitlines()[-1])
+        check(result['host'] == host and finite_numbers(result),
+              f'bench_kitti_eval ({host}): a finite result')
+        headline(f'bench_kitti_eval ({host})', json.dumps(result))
+    seconds['phase'] = time.perf_counter() - t_phase
+    print(json.dumps({'measure_tools_seconds': seconds}), flush=True)
+    return runs
+
+
 def point_cloud_range(cfg_file):
     """A config's POINT_CLOUD_RANGE."""
     from lidardetection_tpu_torch.config import cfg_from_yaml_file
@@ -4259,10 +4318,20 @@ def main():
     # configs in f32 itself (utils/precision.py), as a user's run sees it
 
     # what cuda_ms reads for a one-element kernel: the floor under every
-    # kernel time below (events, launch, a cold L2)
+    # kernel time below (events, launch, a cold L2), beside the earlier
+    # timer's (its flush left the L2 dirty)
     tiny = torch.zeros(1, device='cuda')
     print(f'timing floor: a one-element add_ reads '
-          f'{cuda_ms(lambda: tiny.add_(1), torch):.4f} ms', flush=True)
+          f'{cuda_ms(lambda: tiny.add_(1)):.4f} ms (the earlier flush: '
+          f'{cuda_ms(lambda: tiny.add_(1), flush="dirty"):.4f} ms)', flush=True)
+    # what each flush leaves behind: a 32 MB read and a 32 MB write timed
+    # after it pay for the dirty lines they evict
+    probe = torch.ones(8 << 20, device='cuda')
+    for what, fn in (('read (sum)', probe.sum), ('write (zero_)', probe.zero_)):
+        print(f'L2 flush probe, a 32 MB {what}: after the clean flush '
+              f'{cuda_ms(fn):.4f} ms, after the earlier (dirty) flush '
+              f'{cuda_ms(fn, flush="dirty"):.4f} ms', flush=True)
+    del probe
 
     if sys.argv[1:] == ['--deterministic-cost']:
         from lidardetection_tpu_torch.train import Trainer
@@ -4296,7 +4365,7 @@ def main():
         CFG, N_REQUESTS, {pillar_vfe: 1, scatter_rows: 1},
         {'latency': 120.99, 'make_batch': 31.35, 'postprocess': 82.63})
     (k1, k2), scatter_case = pillar_kernel_phase(torch, det)
-    forward_split(torch, det, clouds[0])
+    forward_split(det, clouds[0])
     compare_phase(torch, det, CFG, clouds[:2])
     profiled = [(det, clouds[0])]  # traced last: see profile_run
 
@@ -4306,7 +4375,7 @@ def main():
         {'latency': 113.77, 'postprocess': 79.39})
     k3, k2_second = sparse_kernel_phase(torch, det)
     k2['second'] = k2_second
-    forward_split(torch, det, clouds[0])
+    forward_split(det, clouds[0])
     compare_phase(torch, det, CFG_SECOND, clouds[:2])
     profiled.append((det, clouds[0]))
     del det
@@ -4370,7 +4439,7 @@ def main():
         torch, det, clouds[0], 'CBGS SECOND',
         (('conv_input', 1), ('stage 1', 2), ('stage 2', 5), ('stage 3', 5),
          ('stage 4', 5), ('conv_out', 1)))
-    forward_split(torch, det, clouds[0],
+    forward_split(det, clouds[0],
                   modules=[('dense head: shared conv', det.model.dense_head.shared_conv)]
                   + [(f'dense head: group {i}', h)
                      for i, h in enumerate(det.model.dense_head.rpn_heads)])
@@ -4386,14 +4455,14 @@ def main():
         None, clouds=dense_clouds)
     print(f'CBGS PointPillar serving peak memory '
           f'{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB', flush=True)
-    forward_split(torch, det, clouds[0])
+    forward_split(det, clouds[0])
     del det
 
     print('== PV-RCNN multiframe ==', flush=True)
     det, clouds, launches_multiframe = served(
         CFG_MULTIFRAME, N_REQUESTS_VARIANTS,
         dict(zip(wrappers, (0, 1, 12, 0, 5))), None)
-    forward_split(torch, det, clouds[0])
+    forward_split(det, clouds[0])
     compare_plain_phase(torch, det, CFG_MULTIFRAME, clouds[0], wrappers)
     del det
 
@@ -4563,6 +4632,11 @@ def main():
     fork_root.cleanup()
     print(f'fork data phase: {time.perf_counter() - t0:.1f} s', flush=True)
 
+    print('== the measurement tools ==', flush=True)
+    measure_root = tempfile.TemporaryDirectory(prefix='chip_smoke_measure_')
+    runs_from_measure = measure_tools_phase(torch, Path(measure_root.name))
+    measure_root.cleanup()
+
     print('== under the profiler ==', flush=True)
     scatter_launch_count(torch, *scatter_case)
 
@@ -4576,7 +4650,7 @@ def main():
     # its steady state; the wait inside the traced span gives the device's
     # idle share of training from files
     steps_from_files(refill_files)
-    profile_run(torch, f'SECONDNet: {PROFILED_STEPS} training steps fed by '
+    profile_run(f'SECONDNet: {PROFILED_STEPS} training steps fed by '
                 'the loader', lambda: steps_from_files(PROFILED_STEPS))
     batches_files.close()  # the loader's workers end
     for det, points in profiled:
@@ -4587,8 +4661,22 @@ def main():
                         (trainer_parta2, batch_parta2),
                         (trainer_pointrcnn, batch_pointrcnn),
                         (trainer_cbgs, batch_cbgs)):
-        profile_run(torch, f'{each.cfg["MODEL"]["NAME"]} training step',
+        profile_run(f'{each.cfg["MODEL"]["NAME"]} training step',
                     lambda: each.step(batch))
+    # profile_trace, under its own profiler: PV-RCNN's eval step at B = 8
+    from lidardetection_tpu_torch.tools import profile_trace
+    trace_root = tempfile.TemporaryDirectory(prefix='chip_smoke_trace_')
+    row, _ = tool_run(profile_trace, ['--iters', '2', '--top', '12', '--out',
+                                      trace_root.name],
+                      'tools: profile_trace', runs_from_measure,
+                      ('rulebook_conv', 'scatter_rows', 'ball_select'))
+    trace_root.cleanup()
+    check(row['device_ms_per_iter'] is not None and row['device_ms_per_iter'] > 0,
+          'profile_trace: device time recorded')
+    print(f'measure tool profile_trace: PV-RCNN eval step B=8, device kernels '
+          f'{row["device_ms_per_iter"]:.3f} ms/iter, wall '
+          f'{row["wall_ms_per_iter"]:.3f} ms/iter, idle share '
+          f'{row["idle_share"]:.3f}, top {row["top"]}', flush=True)
 
     print('== the tools ==', flush=True)
     tools_root = tempfile.TemporaryDirectory(prefix='chip_smoke_tools_')
@@ -4626,7 +4714,8 @@ def main():
             'PV-RCNN multiframe training': launches_train_multiframe,
             'PartA2-free training': launches_train_free,
             'SECOND multi-head eval': launches_eval_mh, **runs_from_files,
-            **runs_from_fork, **runs_from_tools, **runs_from_cli}
+            **runs_from_fork, **runs_from_tools, **runs_from_cli,
+            **runs_from_measure}
     # Part-A²'s per-layer rows on a line of their own, its totals in the
     # kernels line
     parta2_rows = {'K3 request': k3_parta2.pop('layers'),
@@ -4666,6 +4755,10 @@ def main():
     for k in kernels:
         k['launches'] = sum(run.get(k['name'], 0) for run in runs.values())
         check(k['launches'] > 0, f'{k["name"]} ran on a main path')
+    for k in kernels:  # the timer's flush: clean (now) against dirty (before)
+        print(f'{k["name"]}: {k["ms"]:.4f} ms a call with the L2 flushed '
+              f'clean, {k["old_flush_ms"]:.4f} ms with the earlier flush (a '
+              f'64 MB write, the L2 left dirty)', flush=True)
     print(json.dumps({'launches': runs, 'card': card}), flush=True)
     print(card, flush=True)
     print(json.dumps({'kernels': kernels}), flush=True)

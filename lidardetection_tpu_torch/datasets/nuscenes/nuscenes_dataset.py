@@ -6,8 +6,10 @@ KITTI-protocol evaluation of ``EVAL_METRIC: kitti``.
 
 The sweeps a sample takes are drawn from the caller's `rng`; CBGS draws
 from ``RandomState(seed)`` of the dataset's seed. The official NDS / mAP
-evaluation needs the nuscenes-devkit (imported when asked for, as in the
-JAX package); the info creation from raw NuScenes is not ported.
+evaluation (``_nuscenes_official_eval``) and the info creation from raw
+NuScenes (``nuscenes_utils.create_nuscenes_info``) need the
+nuscenes-devkit, imported when asked for, as in the JAX package; without
+it ``evaluation`` returns the JAX package's message and no metric.
 
 ``_kitti_style_eval`` hands the protocol the class ids of the config's
 classes that it knows (car, pedestrian, truck): the JAX package's copy
@@ -174,9 +176,7 @@ class NuScenesDataset(DatasetTemplate):
         except ImportError:
             return ('nuscenes-devkit not installed; install it for official '
                     'NDS/mAP evaluation (falling back to no metric)'), {}
-        raise NotImplementedError(
-            'the official NuScenes evaluation is not ported: see '
-            'ROADMAP.md section 1, "Not queued"')
+        return self._nuscenes_official_eval(det_annos, class_names, **kwargs)
 
     def _kitti_style_eval(self, det_annos, class_names):
         """The official KITTI protocol over the NuScenes boxes, in a
@@ -211,6 +211,47 @@ class NuScenesDataset(DatasetTemplate):
         if not present:
             return 'no kitti-protocol-evaluable classes', {}
         return kitti_eval.get_official_eval_result(gt_annos, dt_annos, present)
+
+    def _nuscenes_official_eval(self, det_annos, class_names, **kwargs):
+        """The devkit's detection eval (nuscenes_dataset.py:202-236): the
+        detections in the global frame as the results JSON, then
+        ``NuScenesEval`` under ``detection_cvpr_2019``; returns
+        ``format_nuscene_results`` of its summary."""
+        import json
+
+        from nuscenes.nuscenes import NuScenes
+
+        from . import nuscenes_utils
+        nusc = NuScenes(version=self.dataset_cfg['VERSION'],
+                        dataroot=str(self.root_path), verbose=True)
+        # annos past the infos' count are the last batch's padding
+        nusc_annos = nuscenes_utils.transform_det_annos_to_nusc_annos(
+            det_annos[:len(self.infos)], nusc)
+        nusc_annos['meta'] = {'use_camera': False, 'use_lidar': True,
+                              'use_radar': False, 'use_map': False,
+                              'use_external': False}
+        output_path = Path(kwargs.get('output_path', '.'))
+        output_path.mkdir(exist_ok=True, parents=True)
+        res_path = str(output_path / 'results_nusc.json')
+        with open(res_path, 'w') as f:
+            json.dump(nusc_annos, f)
+        if self.dataset_cfg['VERSION'] == 'v1.0-test':
+            return 'No ground-truth annotations for evaluation', {}
+
+        from nuscenes.eval.detection.config import config_factory
+        from nuscenes.eval.detection.evaluate import NuScenesEval
+        eval_set_map = {'v1.0-mini': 'mini_val', 'v1.0-trainval': 'val',
+                        'v1.0-test': 'test'}
+        eval_config = config_factory('detection_cvpr_2019')
+        nusc_eval = NuScenesEval(
+            nusc, config=eval_config, result_path=res_path,
+            eval_set=eval_set_map[self.dataset_cfg['VERSION']],
+            output_dir=str(output_path), verbose=True)
+        nusc_eval.main(plot_examples=0, render_curves=False)
+        with open(output_path / 'metrics_summary.json', 'r') as f:
+            metrics = json.load(f)
+        return nuscenes_utils.format_nuscene_results(
+            metrics, self.class_names, version='detection_cvpr_2019')
 
     def create_groundtruth_database(self, rng, used_classes=None,
                                     max_sweeps=10):

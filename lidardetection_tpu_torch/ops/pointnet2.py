@@ -32,6 +32,7 @@ product, no TF32), cells ``floor((p - origin) / cell)``, FPS distances;
 """
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -233,30 +234,29 @@ def grid_ball_query_multi(radii, nsamples, xyz, xyz_num, new_xyz,
     return [decode(t, ns) for t, ns in zip(tops, nsamples)]
 
 
-def grid_select_args(radii, nsamples, xyz, xyz_num, new_xyz,
-                     new_xyz_valid=None, bounds=None, cell_cap=64):
-    """``ball_select``'s arguments for `grid_ball_query_multi`: the
-    cell-sorted sources, their original indices, each centre's row runs,
-    the centres, radii, nsamples and the run cap."""
+class GridGeometry(NamedTuple):
+    """The grid of `grid_ball_query_multi`: cells of size ``max(radii)``
+    over `bounds`, and each centre's runs (``row_ds`` key offsets, with
+    their y and z steps; z layers absolute when the grid has at most 2)."""
+    origin: torch.Tensor
+    size: torch.Tensor
+    hi: torch.Tensor
+    gx: int
+    gy: int
+    gz: int
+    n_cells: int
+    row_ds: list
+    row_dy: list
+    row_dz: list
+
+
+def grid_geometry(radii, bounds, device):
     assert bounds is not None, 'grid_ball_query needs a static range'
     x0, y0, z0, x1, y1, z1 = (float(v) for v in bounds)
     cell = float(max(radii))
     gx = max(int(np.ceil((x1 - x0) / cell)), 1)
     gy = max(int(np.ceil((y1 - y0) / cell)), 1)
     gz = max(int(np.ceil((z1 - z0) / cell)), 1)
-    n_cells = gx * gy * gz
-    dev = xyz.device
-    origin = torch.tensor([x0, y0, z0], dtype=torch.float32, device=dev)
-    size = torch.full((3,), cell, dtype=torch.float32, device=dev)
-    hi = torch.tensor([gx - 1, gy - 1, gz - 1], device=dev)
-
-    def cell_of(p):
-        c = torch.floor((p - origin) / size).long()
-        return torch.minimum(c.clamp(min=0), hi)
-
-    def cell_key(c):
-        return (c[..., 2] * gy + c[..., 1]) * gx + c[..., 0]
-
     if gz <= 2:  # rows: absolute z layers x dy
         row_ds = [zz * gx * gy + dy * gx for dy in (-1, 0, 1) for zz in range(gz)]
         row_dy = [dy for dy in (-1, 0, 1) for _ in range(gz)]
@@ -265,26 +265,54 @@ def grid_select_args(radii, nsamples, xyz, xyz_num, new_xyz,
         row_ds = [(dz * gy + dy) * gx for dz in (-1, 0, 1) for dy in (-1, 0, 1)]
         row_dy = [dy for _ in (-1, 0, 1) for dy in (-1, 0, 1)]
         row_dz = [dz for dz in (-1, 0, 1) for _ in (-1, 0, 1)]
+    return GridGeometry(
+        torch.tensor([x0, y0, z0], dtype=torch.float32, device=device),
+        torch.full((3,), cell, dtype=torch.float32, device=device),
+        torch.tensor([gx - 1, gy - 1, gz - 1], device=device),
+        gx, gy, gz, gx * gy * gz, row_ds, row_dy, row_dz)
 
-    b, n, _ = xyz.shape
-    valid = torch.arange(n, device=dev) < xyz_num[:, None]
-    ck = torch.where(valid, cell_key(cell_of(xyz)), n_cells)
+
+def _cell_of(p, geo):
+    c = torch.floor((p - geo.origin) / geo.size).long()
+    return torch.minimum(c.clamp(min=0), geo.hi)
+
+
+def _cell_key(c, geo):
+    return (c[..., 2] * geo.gy + c[..., 1]) * geo.gx + c[..., 0]
+
+
+def source_order(xyz, xyz_num, geo):
+    """The sources' stable sort by cell key (padding last): the order and
+    the sorted keys."""
+    n = xyz.shape[1]
+    valid = torch.arange(n, device=xyz.device) < xyz_num[:, None]
+    ck = torch.where(valid, _cell_key(_cell_of(xyz, geo), geo), geo.n_cells)
     order = torch.argsort(ck, dim=1, stable=True)
-    sk = torch.gather(ck, 1, order)
-    src_sorted = torch.gather(xyz.float(), 1, order[..., None].expand(-1, -1, 3))
-    # bounds[k]: the first sorted row whose key is >= k, k <= n_cells + 2
-    keys = torch.arange(n_cells + 3, device=dev).expand(b, -1).contiguous()
-    first_row = torch.searchsorted(sk, keys)
+    return order, torch.gather(ck, 1, order)
 
-    cc = cell_of(new_xyz)
-    key = cc[..., 1] * gx + cc[..., 0] if gz <= 2 else cell_key(cc)
+
+def cell_first_rows(sk, geo):
+    """first_row[k]: the first sorted row whose key is >= k, k <= n_cells
+    + 2."""
+    keys = torch.arange(geo.n_cells + 3, device=sk.device).expand(
+        sk.shape[0], -1).contiguous()
+    return torch.searchsorted(sk, keys)
+
+
+def center_runs(first_row, new_xyz, new_xyz_valid, geo, cell_cap):
+    """Each centre's runs of the sorted table: (start, end) (B, M,
+    n_row), each cut to ``(NW - 1) * cell_cap`` rows, empty for an
+    invalid centre; and that cap."""
+    gx, gy, gz = geo.gx, geo.gy, geo.gz
+    cc = _cell_of(new_xyz, geo)
+    key = cc[..., 1] * gx + cc[..., 0] if gz <= 2 else _cell_key(cc, geo)
     kx, ky, kz = key % gx, (key // gx) % gy, key // (gx * gy)
 
     def shifted(d):  # first_row[key + d], edge-clamped
-        return torch.gather(first_row, 1, (key + d).clamp(0, n_cells + 2))
+        return torch.gather(first_row, 1, (key + d).clamp(0, geo.n_cells + 2))
 
     starts, ends = [], []
-    for d, dy, dz in zip(row_ds, row_dy, row_dz):
+    for d, dy, dz in zip(geo.row_ds, geo.row_dy, geo.row_dz):
         ok = (ky + dy >= 0) & (ky + dy < gy)
         if dz is not None:
             ok &= (kz + dz >= 0) & (kz + dz < gz)
@@ -297,7 +325,28 @@ def grid_select_args(radii, nsamples, xyz, xyz_num, new_xyz,
     end = torch.minimum(torch.stack(ends, -1), start + max_run)
     if new_xyz_valid is not None:
         end = torch.where(new_xyz_valid[..., None], end, start)
-    return (src_sorted.contiguous(), order.int().contiguous(),
+    return start, end, max_run
+
+
+def sorted_sources(xyz, order):
+    """The candidate table K5 reads: the sources' xyz in cell order."""
+    return torch.gather(xyz.float(), 1, order[..., None].expand(-1, -1, 3))
+
+
+def grid_select_args(radii, nsamples, xyz, xyz_num, new_xyz,
+                     new_xyz_valid=None, bounds=None, cell_cap=64):
+    """``ball_select``'s arguments for `grid_ball_query_multi`: the
+    cell-sorted sources, their original indices, each centre's row runs,
+    the centres, radii, nsamples and the run cap. Its pieces (the sort,
+    the boundary table, the centres' runs, the candidate table) are
+    functions of their own, which ``tools/microbench_select.py`` times
+    one by one."""
+    geo = grid_geometry(radii, bounds, xyz.device)
+    order, sk = source_order(xyz, xyz_num, geo)
+    first_row = cell_first_rows(sk, geo)
+    start, end, max_run = center_runs(first_row, new_xyz, new_xyz_valid, geo,
+                                      cell_cap)
+    return (sorted_sources(xyz, order).contiguous(), order.int().contiguous(),
             start.int().contiguous(), end.int().contiguous(),
             new_xyz.float().contiguous(), tuple(radii), tuple(nsamples),
             max_run)

@@ -51,6 +51,7 @@ from ..ops.sparse_conv_cuda import (
 )
 from ..ops.vfe_cuda import pillar_vfe
 from ..utils.precision import full_f32
+from .microbench_rbconv import make_rulebook
 
 ALL = ('conv', 'ball', 'scatter', 'vfe', 'rank', 'iou')
 BOUNDS = (0.0, -39.68, -3.0, 69.12, 39.68, 1.0)  # PV-RCNN's range
@@ -71,27 +72,6 @@ def case(name, kernel, got, want, atol, rtol):
     return {'case': name, 'kernel': kernel, 'ok': not bad.any(),
             'max_abs_err': float(err.max()) if err.size else 0.0,
             'bad': f'{int(bad.sum())}/{bad.size}'}
-
-
-def make_rulebook(rng, b, vi, vo, k=27, hit=0.55):
-    """A banded rulebook (copy of tools/microbench_rbconv.py::make_rulebook):
-    ascending columns, in-plane offsets near the diagonal, the z groups
-    shifted by ~vi / 3, as real sorted tables are; a miss is vi."""
-    rule = np.full((b, vo, k), vi, np.int32)
-    for bi in range(b):
-        for kk in range(k):
-            shift = (kk // 9 - 1) * (vi // 3)
-            jitter = (kk % 9 - 4) * 3
-            rows = np.arange(vo)
-            cand = rows * vi // vo + shift + jitter
-            hits = (rng.rand(vo) < hit) & (cand >= 0) & (cand < vi)
-            c = np.maximum.accumulate(cand[hits])
-            _, first = np.unique(c, return_index=True)
-            keep = np.zeros(len(c), bool)
-            keep[first] = True
-            idx = np.where(hits)[0][keep]
-            rule[bi, idx, kk] = c[keep]
-    return rule
 
 
 def verify_conv(device):
