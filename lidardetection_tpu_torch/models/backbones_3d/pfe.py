@@ -19,6 +19,7 @@ from torch import nn
 
 from ...core.geometry import get_voxel_centers
 from ...ops import pointnet2 as p2
+from ...ops.gather import gather_rows
 from ..layers import POINT_BN, Dense, MaskedBatchNorm
 from .pointnet2_modules import PointnetSAModuleMSG
 
@@ -34,7 +35,7 @@ def bilinear_interpolate(im, x, y):
     flat = im.reshape(b, h * w, c)
 
     def at(yy, xx):
-        return torch.gather(flat, 1, (yy * w + xx)[..., None].expand(-1, -1, c))
+        return gather_rows(flat, yy * w + xx)
 
     x0f, x1f, y0f, y1f = (v.to(x.dtype) for v in (x0, x1, y0, y1))
     wa = (x1f - x) * (y1f - y)

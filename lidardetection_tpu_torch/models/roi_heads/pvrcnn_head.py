@@ -27,6 +27,7 @@ from torch import nn
 from ...core.box_coders import build_box_coder
 from ...core.geometry import rotate_points_along_z
 from ...ops import pointnet2 as p2
+from ...ops.gather import gather_rows
 from ..backbones_3d.pointnet2_modules import SharedMLP
 from ..dense_heads.point_head import FCLayers
 from ..layers import POINT_BN, Dense, MaskedBatchNorm, dropout
@@ -98,8 +99,8 @@ class RoIGridPool(nn.Module):
                 + self.xyz_proj[ri](cxyz_in)
             sel, empty = p2.candidate_rank_select(
                 cand_xyz, cand_live, grid_pts.detach(), radius, nsample)
-            grp = torch.gather(cand_proj, 2, sel.reshape(b, rr, gg * nsample, 1)
-                               .expand(-1, -1, -1, c0))
+            grp = gather_rows(cand_proj.reshape(b * rr, k, c0),
+                              sel.reshape(b * rr, gg * nsample))
             x = grp.reshape(b, rr, gg, nsample, c0) \
                 - self.xyz_proj[ri](gpts_in)[:, :, :, None, :]
             x = x.masked_fill(empty[..., None, None], 0.0)

@@ -18,6 +18,7 @@ import torch
 from ...core import losses
 from ...core.geometry import rotate_points_along_z
 from ...core.iou3d import boxes_iou3d, nms_bev_batched
+from ...ops.gather import gather_rows
 from ...parallel.dist import batch_normalizer
 
 # the names of the four uniform draws of a sample's RoI sampling, with the
@@ -42,8 +43,7 @@ def proposal_layer(batch, nms_cfg):
         pre_maxsize=int(nms_cfg['NMS_PRE_MAXSIZE']),
         post_maxsize=int(nms_cfg['NMS_POST_MAXSIZE']),
         valid_mask=batch.get('batch_valid_preds'))
-    rois = torch.gather(box_preds, 1,
-                        idx[..., None].expand(-1, -1, box_preds.shape[-1]))
+    rois = gather_rows(box_preds, idx)
     return {
         'rois': rois * mask[..., None],
         'roi_scores': torch.where(mask, torch.gather(scores, 1, idx),
@@ -171,14 +171,11 @@ def sample_rois_for_rcnn(draws, rois, roi_scores, roi_labels, roi_valid,
         gt_boxes = torch.cat([gt_boxes, gt_tracking], dim=-1)
     sampled = subsample_rois(draws, max_ov, roi_valid, sampler_cfg)
 
-    def take(x, idx):
-        idx = idx.reshape(idx.shape + (1,) * (x.dim() - 2))
-        return torch.gather(x, 1, idx.expand(idx.shape[:2] + x.shape[2:]))
-
     return {
-        'rois': take(rois, sampled),
-        'gt_of_rois': take(gt_boxes, torch.gather(gt_assign, 1, sampled)),
-        'gt_iou_of_rois': torch.gather(max_ov, 1, sampled),
+        'rois': gather_rows(rois, sampled),
+        'gt_of_rois': gather_rows(gt_boxes,
+                                  torch.gather(gt_assign, 1, sampled)),
+        'gt_iou_of_rois': gather_rows(max_ov, sampled),
         'roi_scores': torch.gather(roi_scores, 1, sampled),
         'roi_labels': torch.gather(roi_labels, 1, sampled),
         'sampled_inds': sampled,

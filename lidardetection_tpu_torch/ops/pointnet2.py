@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..utils.precision import full_f32
+from .gather import gather_rows
 from .select_cuda import ball_select
 
 _BIG = 1e10
@@ -399,10 +400,7 @@ def candidate_rank_select(cand_xyz, cand_live, grid, radius, nsample):
 
 def group_points(features, idx):
     """(B, N, C), (B, M, ns) -> (B, M, ns, C), a batched row gather."""
-    b, m, ns = idx.shape
-    rows = torch.gather(features, 1, idx.reshape(b, m * ns, 1).long().expand(
-        -1, -1, features.shape[-1]))
-    return rows.reshape(b, m, ns, features.shape[-1])
+    return gather_rows(features, idx)
 
 
 def three_nn(query, src, src_num):

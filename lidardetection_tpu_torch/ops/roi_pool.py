@@ -16,16 +16,18 @@ sorted by cell, a stable sort), where an ``index_add_`` would add in no
 fixed order. That is what lets the bucketed eval's detections equal the
 device-built path's, and one request equal the next; chip_smoke.py
 (``avg_pool_cost``) times the ``index_add_`` pool beside it. The backward
-is not deterministic: the gradient of the gather of the
-sampled points' features adds into each point with ``scatter_add_``
-(float atomics), so two training steps may differ in the last bits. The
-max's gradient is shared evenly among the points that tie for it, as
-JAX's ``_scatter_extremal_jvp`` shares it.
+is deterministic too: the sampled points' features are read by
+``gather.gather_rows``, whose backward adds each point's contributions in
+the order of the slots that read it (a stable sort and a segmented sum),
+where the gradient of ``torch.gather`` would add them with float atomics
+in no fixed order. The max's gradient is shared evenly among the points
+that tie for it, as JAX's ``_scatter_extremal_jvp`` shares it.
 """
 
 import torch
 
 from ..core.geometry import points_in_boxes_3d
+from .gather import gather_rows
 
 
 def roi_point_sample(points, point_num, rois, roi_valid, cap):
@@ -73,9 +75,7 @@ def roipoint_pool3d(points, point_features, point_num, rois, roi_valid,
     slots = torch.arange(s, device=points.device)
     idx = torch.gather(idx, 2, slots % cnt.clamp(min=1))
     data = torch.cat([points, point_features], dim=-1)
-    b, r = idx.shape[:2]
-    pooled = torch.gather(data, 1, idx.reshape(b, r * s, 1).expand(
-        -1, -1, data.shape[-1])).reshape(b, r, s, -1)
+    pooled = gather_rows(data, idx)
     return pooled.masked_fill(empty[..., None, None], 0.0), empty
 
 
@@ -132,8 +132,7 @@ def roiaware_pool3d(points, point_features, rois, sample, out_size,
     idx, _ = sample
     b, r, s = idx.shape
     c = point_features.shape[-1]
-    sfeats = torch.gather(point_features, 1, idx.reshape(b, r * s)[
-        ..., None].expand(-1, -1, c))
+    sfeats = gather_rows(point_features, idx.reshape(b, r * s))
     flat = pool_cells(points, rois, sample, out_size)
     if pool_method == 'max':
         index = flat[..., None].expand(-1, -1, c)
@@ -153,9 +152,8 @@ def roiaware_pool3d(points, point_features, rois, sample, out_size,
             seg, torch.arange(b * rows + 1, device=idx.device))
         count = offsets.diff()
         ssum = torch.segment_reduce(
-            torch.gather(sfeats, 1, order[..., None].expand(-1, -1, c))
-            .reshape(b * r * s, c), 'sum', offsets=offsets, axis=0,
-            unsafe=True, initial=0.0)
+            gather_rows(sfeats, order).reshape(b * r * s, c), 'sum',
+            offsets=offsets, axis=0, unsafe=True, initial=0.0)
         # the count of a cell is its hits: the misses all go to the spare row
         canvas = (ssum / count.clamp(min=1).to(ssum.dtype)[:, None]).reshape(
             b, rows, c)[:, :-1]

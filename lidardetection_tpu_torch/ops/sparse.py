@@ -24,6 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .gather import add_rows
 from .scatter_cuda import scatter_rows
 from .sparse_conv_cuda import rulebook_conv, rulebook_conv_dw
 
@@ -235,7 +236,8 @@ class _SparseConv(torch.autograd.Function):
 
 def _conv_input_grad_plain(grad_out, rulebook, weights, v_in):
     """df of the convolution without a transposed rulebook: the scatter-add
-    that autograd derives from the plain version.
+    that autograd derives from the plain version, each input row's terms
+    added in rulebook order (``gather.add_rows``), so two runs agree.
 
     df[b, rb[b, o, k]] += W[k] g[b, o], a miss dropped. Computed in f32;
     (B, V_out, C_out) -> (B, V_in, C_in) float32.
@@ -245,9 +247,8 @@ def _conv_input_grad_plain(grad_out, rulebook, weights, v_in):
     rb = rulebook.long()
     rb = torch.where((rb < 0) | (rb >= v_in), v_in, rb)
     contrib = grad_out.float() @ weights.float().reshape(k * c_in, c_out).T
-    df = grad_out.new_zeros((b, v_in + 1, c_in), dtype=torch.float32)
-    df.scatter_add_(1, rb.reshape(b, v_out * k, 1).expand(-1, -1, c_in),
-                    contrib.view(b, v_out * k, c_in))
+    df = add_rows(contrib.view(b, v_out * k, c_in), rb.reshape(b, v_out * k),
+                  v_in + 1)
     return df[:, :v_in]
 
 

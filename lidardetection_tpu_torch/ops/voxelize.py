@@ -1,4 +1,5 @@
-"""Host-side hard voxelization and the request batch (numpy).
+"""Hard voxelization and the request batch: on the host (numpy), and on
+the device of its input (``voxelize_device``).
 
 Same semantics as the JAX package's ``ops/voxelize.py::voxelize_np``
 (itself mirroring spconv's VoxelGenerator):
@@ -17,6 +18,12 @@ the same arrays bit for bit. The TPU scatter's tile histogram
 (``bev_tile_starts``) has no place here: the CUDA scatter writes each row
 straight to its key.
 
+``voxelize_device`` is the JAX package's ``voxelize_jax``: the same
+contract on a cloud already on the device, in plain torch (a stable sort
+and segment ranks), with voxel slots taken in key order. It is a library
+function, as ``voxelize_jax`` is: neither package's server or loader calls
+it.
+
 A point-based config (PointRCNN) has no voxelizer: `build_point_batch`
 samples and pads its raw points instead.
 """
@@ -25,6 +32,7 @@ import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 from .. import native
 from ..config import grid_size_from_range
@@ -100,6 +108,64 @@ def voxelize_plain(points, point_cloud_range, voxel_size,
     coords[:n_vox, 1] = (k // gx) % gy
     coords[:n_vox, 2] = k % gx
     return voxels, coords, num_points, n_vox
+
+
+def voxelize_device(points, num_valid_points, point_cloud_range, voxel_size,
+                    max_points_per_voxel, max_voxels):
+    """Hard voxelizer on the device of `points`, with static shapes
+    (lidardetection_tpu/ops/voxelize.py:109-190, ``voxelize_jax``).
+
+    Each of the first `num_valid_points` points with an in-range cell
+    (``floor((p - range_min) / voxel_size)`` in the points' dtype) gets the
+    linear key ``(z*gy + y)*gx + x``; a stable sort by key groups a voxel's
+    points in arrival order. Voxel slots go in key order, at most
+    `max_voxels` of them (so past the cap the kept set is the lowest keys,
+    not the first to arrive), each keeping its first
+    `max_points_per_voxel` points. Below the cap the table equals
+    `voxelize_np`'s, which is sorted by key too.
+
+    Args: points (N, C) padded cloud, C >= 3; num_valid_points an int or a
+    0-dim tensor, the leading valid count; point_cloud_range (6,),
+    voxel_size (3,): sequences of numbers.
+    Returns voxels (max_voxels, P, C) in the points' dtype, zero-padded;
+    coords (max_voxels, 3) int32 (z, y, x), padded with -1;
+    num_points_per_voxel (max_voxels,) int32; num_voxels a 0-dim int32
+    tensor. Nothing is copied to the host.
+    """
+    n, c = points.shape
+    device = points.device
+    pc_range = torch.tensor(point_cloud_range, dtype=points.dtype,
+                            device=device)
+    vsz = torch.tensor(voxel_size, dtype=points.dtype, device=device)
+    gx, gy, gz = (int(g) for g in grid_size_from_range(point_cloud_range,
+                                                        voxel_size))
+    cell = torch.floor((points[:, 0:3] - pc_range[0:3]) / vsz).long()
+    arange = torch.arange(n, device=device)
+    valid = (arange < num_valid_points) & (cell >= 0).all(1) \
+        & (cell < torch.tensor([gx, gy, gz], device=device)).all(1)
+    sentinel = gx * gy * gz  # sorts after every real key
+    key = (cell[:, 2] * gy + cell[:, 1]) * gx + cell[:, 0]
+    skey, order = torch.sort(torch.where(valid, key, sentinel), stable=True)
+    svalid = skey < sentinel
+    is_new = svalid & torch.cat([svalid.new_ones(1), skey[1:] != skey[:-1]])
+    voxel_id = torch.cumsum(is_new, 0) - 1
+    # rank of each point inside its voxel: its distance from the segment start
+    rank = arange - torch.cummax(torch.where(is_new, arange, 0), 0).values
+    keep = svalid & (voxel_id < max_voxels) & (rank < max_points_per_voxel)
+    # dropped points go to a spill row, cut off at the end
+    vid = torch.where(keep, voxel_id, max_voxels)
+    rid = torch.where(keep, rank, 0)
+    voxels = points.new_zeros((max_voxels + 1, max_points_per_voxel, c))
+    voxels[vid, rid] = torch.where(keep[:, None], points[order], 0.0)
+    counts = torch.zeros(max_voxels + 1, dtype=torch.int32, device=device)
+    counts.index_put_((vid,), keep.int(), accumulate=True)
+    first = torch.where(keep & (rank == 0), voxel_id, max_voxels)
+    coords = torch.full((max_voxels + 1, 3), -1, dtype=torch.int32,
+                        device=device)
+    coords[first] = cell[order].flip(1).int()
+    num_voxels = torch.clamp(is_new.sum(), max=max_voxels).int()
+    return voxels[:max_voxels], coords[:max_voxels], counts[:max_voxels], \
+        num_voxels
 
 
 def build_batch(points_list, point_cloud_range, voxel_size,

@@ -770,3 +770,94 @@ def test_roiaware_pool3d_on_the_card(device, method):
     assert float(want.abs().max()) > 0
     assert torch.equal(got, again)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-6)
+
+
+def _vsa_group_case(n=16384, m=2048, ns=32, b=2, seed=3):
+    """Neighbourhoods of a VSA set abstraction (PV-RCNN's 2048 keypoints,
+    nsample 32, over 16384 sources): each keypoint's hits drawn from a
+    window of 64 sources around its centre, a random count of them, the
+    rest of its slots back-filled with its first hit as the ball query
+    fills them, so rows are read many times over."""
+    rng = np.random.RandomState(seed)
+    centre = rng.randint(0, n - 64, (b, m, 1))
+    idx = centre + rng.randint(0, 64, (b, m, ns))
+    cnt = rng.randint(1, ns + 1, (b, m, 1))
+    idx = np.where(np.arange(ns) < cnt, idx, idx[..., :1])
+    return torch.from_numpy(idx)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_gather_rows_backward_is_bit_reproducible(device, dtype):
+    """``gather_rows``' backward at a VSA grouping's shape, C = 64: two
+    backward calls on the card give the same bits, the same bits as the
+    CPU (both add each row's contributions left to right in float32), and
+    in bf16 one rounding of the float32 gradient that ``torch.gather``'s
+    autograd gives."""
+    from lidardetection_tpu_torch.ops.gather import gather_rows
+
+    idx = _vsa_group_case()
+    rng = np.random.RandomState(4)
+    feats = torch.from_numpy(rng.randn(2, 16384, 64).astype(np.float32))
+    grad = torch.from_numpy(rng.randn(*idx.shape, 64).astype(np.float32))
+
+    def backward(f, i, g):
+        f = f.detach().to(dtype).requires_grad_(True)
+        gather_rows(f, i).backward(g.to(dtype))
+        return f.grad
+
+    on_card = [t.to(device) for t in (feats, idx, grad)]
+    first, second = backward(*on_card), backward(*on_card)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first.cpu(), backward(feats, idx, grad))
+    f = feats.to(device).requires_grad_(True)
+    torch.gather(f, 1, idx.to(device).reshape(2, -1, 1).expand(-1, -1, 64)) \
+        .backward(on_card[2].to(dtype).float().reshape(2, -1, 64))
+    want = f.grad  # float32 atomics: within float32 rounding of the sums
+    slack = 1e-5 * float(want.abs().max())
+    rel = 2 ** -8 if dtype == torch.bfloat16 else 0.0
+    assert bool(((first.float() - want).abs()
+                 <= rel * want.abs() + slack).all())
+
+
+def test_gather_rows_backward_at_batch_one_with_a_permuted_gradient(device):
+    """B = 1 and a consumer that permutes the gathered rows: the gradient
+    reaching the backward is a non-contiguous view, and the card's result
+    is the CPU's, bit for bit."""
+    from lidardetection_tpu_torch.ops.gather import gather_rows
+
+    idx = _vsa_group_case(b=1)
+    rng = np.random.RandomState(5)
+    feats = torch.from_numpy(rng.randn(1, 16384, 64).astype(np.float32))
+    cot = torch.from_numpy(rng.randn(1, 64, 2048, 32).astype(np.float32))
+
+    def backward(f, i, g):
+        f = f.detach().requires_grad_(True)
+        (gather_rows(f, i).permute(0, 3, 1, 2) * g).sum().backward()
+        return f.grad
+
+    got = backward(*(t.to(device) for t in (feats, idx, cot)))
+    assert torch.equal(got.cpu(), backward(feats, idx, cot))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16,
+                                   torch.float64])
+@pytest.mark.parametrize('c', [1, 3, 64, 257, 4100])
+def test_sorted_row_sums_on_the_card_match_the_cpu(device, dtype, c):
+    """The backward's segmented sum on the card against the CPU, bit for
+    bit: rows read by none, by one and by thousands of positions, C from 1
+    to 4100, every dtype the gathers take."""
+    from lidardetection_tpu_torch.ops.gather import sorted_row_sums
+
+    rng = np.random.RandomState(c)
+    n_rows, n = 3000, 20000
+    rows = rng.randint(0, n_rows // 2, n)  # the upper half read by none
+    rows[:5000] = 7  # one row read 5000 times over
+    keys, order = torch.sort(torch.from_numpy(rows.astype(np.int32)),
+                             stable=True)
+    values = torch.from_numpy(rng.randn(n, c)).to(dtype)
+    want = sorted_row_sums(values, keys, order, n_rows)
+    got = sorted_row_sums(*(t.to(device) for t in (values, keys, order)),
+                          n_rows)
+    assert got.dtype == dtype and got.shape == (n_rows, c)
+    assert torch.equal(got.cpu(), want)
