@@ -211,11 +211,14 @@ profiler's section, after K2's launch count, 16 untraced SECOND steps
 take the batches the workers built ahead meanwhile, then 16 traced ones
 fed by the loader give the idle share of training from files.
 In the data phase, the CBGS step's loader batch also takes one whole f32
-step with the kernels against the plain versions and a float64 plain
-step: every K3 and K4 call within sqrt(terms) units of float32 rounding
-of its plain version and the loss within 1e-6, held; each gradient
-leaf's distance from the float64 step against 3 times the plain f32
-step's plus 4 float32 ulps, read (``whole_step_phase``). Each of the nine
+step with the kernels against the plain versions and a step that is
+float64 from end to end (``tools/step_precision.py``): every K3 and K4
+call within sqrt(terms) units of float32 rounding of its plain version,
+the loss within 1e-6, and, on the float64 step's ReLU branch, each
+gradient leaf's distance from the float64 step within 3 times the plain
+f32 step's plus 4 float32 ulps, held; the same rule on the free steps,
+the plain step in three other summation orders, float64 BatchNorm
+statistics and a layer walk, read (``whole_step_phase``). Each of the nine
 trainers' synthetic training runs takes two identical steps, held
 bit-equal with deterministic mode off (``reproducibility_phase``).
 Before the data layer, ``ops/voxelize.py::voxelize_device`` on the card
@@ -263,9 +266,13 @@ config dumped in the log, the profile window's Chrome trace naming K2's,
 K3's and K4's kernels, the TensorBoard scalars where TensorBoard imports;
 then ``tools.test.evaluate --eval_all`` with no ``--ckpt_dir`` reads
 both epochs, each with the recall and the detections of the training
-run's own eval. It prints the iteration p50 (wait, copy, step), the eval
-``sec_per_example``, the profile window's wall time and the phase's
-seconds.
+run's own eval. The final state's eval, taken again, has some kept boxes
+that are not finite, as many as the training run's annos (the running
+statistics of 16 steps: the JAX package's eval overflows at the same
+rows, tests/test_torch_eval_after_training.py), and none with each eval
+batch's own BatchNorm statistics (``finite_boxes_held``). It prints the
+iteration p50 (wait, copy, step), the eval ``sec_per_example``, the
+profile window's wall time and the phase's seconds.
 The measurement tools, after the fork's datasets and before the
 profiler (``measure_tools_phase``): each tool of
 ``lidardetection_tpu_torch/tools/`` that counterparts a JAX measuring
@@ -3276,119 +3283,57 @@ def rounding_units(torch, kernel, plain, args, n_terms):
         n_terms ** 0.5
 
 
-def _float64_statistics(self, x, mask):
-    """MaskedBatchNorm's batch statistics of x in float64 (the port sums
-    them in float32), the running statistics moved as the layer moves
-    them."""
-    import torch
+def rule_reading(rule):
+    """A ``float64_rule`` reading in words: the leaves within it, the
+    tightest one with its distance and what it allows."""
+    from lidardetection_tpu_torch.tools.step_precision import broken_leaves
 
-    from lidardetection_tpu_torch.parallel.dist import batch_moments
-
-    axis = self.axis % x.dim()
-    dims = [d for d in range(x.dim()) if d != axis]
-    xd = x.double()
-    if mask is None:
-        cnt = float(x.numel() // x.shape[axis])
-        s1, s2 = xd.sum(dims), (xd * xd).sum(dims)
-    else:
-        m = mask.double().unsqueeze(axis)
-        cnt = m.sum()
-        s1, s2 = (xd * m).sum(dims), (xd * xd * m).sum(dims)
-    mean, var = batch_moments(cnt, s1, s2)
-    with torch.no_grad():
-        self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
-        self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
-    return mean, var
-
-
-def _conv_float64(features, valid_mask, rulebook, weights, **kwargs):
-    """The sparse convolution's plain version in float64."""
-    import torch
-
-    b, v_in, c_in = features.shape
-    k, _, c_out = weights.shape
-    rb = rulebook.long()
-    rb = torch.where((rb < 0) | (rb >= v_in), v_in, rb)
-    f_ext = torch.cat([features.double(), features.new_zeros(
-        (b, 1, c_in), dtype=torch.float64)], dim=1)
-    rows = torch.gather(f_ext, 1, rb.flatten(1)[..., None].expand(
-        b, rb.shape[1] * k, c_in))
-    out = rows.view(b, rb.shape[1], k * c_in) \
-        @ weights.double().reshape(k * c_in, c_out)
-    return out * valid_mask[..., None]
-
-
-def float64_step_gradient(torch, cfg, state, part, seed, device):
-    """The plain step in float64 on `part`: the model's weights, its
-    compute dtype, its sparse convolutions (``_conv_float64``) and its
-    BatchNorm statistics (``_float64_statistics``) in float64, its other
-    layers in their plain versions; the heads' outputs and the losses stay
-    in float32, where the model casts them. Returns the loss and
-    {name: gradient}."""
-    import copy
-
-    from lidardetection_tpu_torch.models import layers
-    from lidardetection_tpu_torch.ops import sparse
-    from lidardetection_tpu_torch.parallel.train_step import step_draw
-    from lidardetection_tpu_torch.train import Trainer
-
-    cfg = copy.deepcopy(cfg)
-    cfg.MODEL.COMPUTE_DTYPE = 'float64'
-    twin = Trainer(cfg, device=device, state_dict=state, total_steps=4,
-                   seed=seed)
-    twin.model.double()
-    b64 = {k: v.double() if v.is_floating_point() else v
-           for k, v in part.items()}
-    with plain_versions():
-        norm = layers.MaskedBatchNorm
-        kept = sparse.sparse_conv_apply, norm._batch_statistics
-        sparse.sparse_conv_apply = _conv_float64
-        norm._batch_statistics = _float64_statistics
-        try:
-            out = twin.model(b64, step_draw(seed, 0, device))
-            tb = twin.model.loss(out)[1]
-            tb['loss'].backward()
-        finally:
-            sparse.sparse_conv_apply, norm._batch_statistics = kept
-    return float(tb['loss'].detach()), {
-        k: p.grad.detach().clone() for k, p in twin.model.named_parameters()}
-
-
-def float64_rule(kernels, plain, exact):
-    """Per leaf: the kernels' step's largest distance from the float64 step
-    against 3 x the plain float32 step's own, plus 4 float32 ulps of the
-    leaf's largest float64 entry. Returns {leaf: (kernels' distance,
-    allowed, plain's distance, largest entry)}."""
-    out = {}
-    for k, want in exact.items():
-        top = float(want.abs().max())
-        d_k = float((kernels[k].double() - want).abs().max())
-        d_p = float((plain[k].double() - want).abs().max())
-        ulp = 2.0 ** (np.floor(np.log2(top)) - 23) if top > 0 else 0.0
-        out[k] = (d_k, 3 * d_p + 4 * ulp, d_p, top)
-    return out
+    worst = max(rule, key=lambda k: rule[k][0] / max(rule[k][1], 1e-300))
+    return (f'{len(rule) - len(broken_leaves(rule))} of {len(rule)} leaves '
+            f'within the rule, the tightest {worst} ({rule[worst][0]:.3g} of '
+            f'{rule[worst][1]:.3g} allowed)')
 
 
 def whole_step_phase(torch, trainer, cfg_file, batch, wrappers, label):
-    """The whole f32 step with the kernels against the plain f32 step and a
-    float64 plain step (``float64_step_gradient``), on the first two scenes
-    of `batch` with the trainer's weights. Held: every K3 and K4 call of the
-    kernels' step within sqrt(terms) units of eps x sum|terms| of its plain
-    version (``rounding_units``: a correct sum in another order; a wrong
-    row or offset reads as ~1/eps); and the loss within 1e-6 of the plain
-    step's. Read, not held: every gradient leaf of the kernels' step
-    against 3 x the plain f32 step's distance from the float64 step plus 4
-    float32 ulps of the leaf's largest entry (``float64_rule``), and the
-    leaves that break it by name; a few leaves jump under the kernels'
-    rounding where the plain step does not (ROADMAP section 3). The leaves
-    where the plain f32 step lies more than 1e-3 of the leaf's largest
-    entry from the float64 one are printed by name."""
+    """The whole f32 step with the kernels against the plain f32 step and
+    a float64 step, on the first two scenes of `batch` with the trainer's
+    weights (``tools/step_precision.py``). The float64 step runs in
+    float64 from end to end (weights, sparse convolutions, BatchNorm
+    statistics, the heads' outputs and the losses; the anchor targets
+    assigned in float32 as the f32 steps assign them).
+
+    Held: every K3 and K4 call of the kernels' step within sqrt(terms)
+    units of eps x sum|terms| of its plain version (``rounding_units``: a
+    correct sum in another order; a wrong row or offset reads as ~1/eps);
+    the loss within 1e-6 of the plain step's; no operation of the float64
+    step rounds a float64 value to float32 (``Float32Audit``), and its
+    anchor labels equal the f32 steps'; and ``float64_rule`` (each leaf's
+    distance from the float64 step within 3 x the plain f32 step's, plus
+    4 float32 ulps of the leaf's largest entry) in every leaf of the
+    kernels' step against the plain step, both on the float64 step's ReLU
+    branch (``ReluBranch``: each ReLU keeps the float64 step's sign
+    pattern; the entries whose own f32 sign differs are counted).
+
+    Read: the same rule on the free f32 steps, where a few hundred ReLU
+    entries within rounding of 0 take the other side and the leaves
+    behind them jump (ROADMAP section 3); on the plain step summed in the
+    three orders of ``REORDERINGS``; on both steps with only the
+    BatchNorm statistics in float64 (``float64_batch_statistics``); and
+    the layer walk over the sparse, 2D backbone and head layers
+    (``first_parting_layer``: each layer's output and the gradient
+    reaching it, the first where the kernels' distance from the float64
+    step exceeds 3 x the plain step's)."""
     from lidardetection_tpu_torch.config import cfg_from_yaml_file
+    from lidardetection_tpu_torch.models.backbones_3d.spconv_backbone import (
+        SparseConvLayer,
+    )
+    from lidardetection_tpu_torch.models.layers import ConvBNReLU
     from lidardetection_tpu_torch.ops.sparse_conv_cuda import (
         rulebook_conv, rulebook_conv_dw, rulebook_conv_dw_plain,
         rulebook_conv_plain,
     )
     from lidardetection_tpu_torch.parallel.train_step import step_draw
+    from lidardetection_tpu_torch.tools import step_precision as sp
     from lidardetection_tpu_torch.train import Trainer
     from lidardetection_tpu_torch.utils.precision import full_f32
 
@@ -3398,21 +3343,36 @@ def whole_step_phase(torch, trainer, cfg_file, batch, wrappers, label):
     twin = Trainer(cfg, device='cuda', state_dict=state, total_steps=4,
                    seed=trainer.seed)
     part = {k: v[:2] for k, v in batch.items()}
+    # the layer walk: the sparse layers, the 2D backbone's and the heads',
+    # in order
+    walked = [n for n, m in twin.model.named_modules()
+              if isinstance(m, (SparseConvLayer, ConvBNReLU))
+              and n.startswith(('backbone_3d.', 'backbone_2d.', 'dense_head.'))]
+    sparse = [n for n in walked if n.startswith('backbone_3d.')]
 
-    def gradient(ctx, plain):
-        for p in twin.model.parameters():
-            p.grad = None
+    def gradient(ctx, plain, against=None):
+        """The f32 step inside `ctx`; the plain versions too when
+        `plain`. Returns the loss, the gradient, the labels and, given the
+        float64 step's layer readings `against`, each walked layer's
+        shares."""
         for k in wrappers:
             k.launches = 0
-        with ctx, full_f32():
-            tb = twin.model.loss(twin.model(part, step_draw(trainer.seed, 0,
-                                                            'cuda')))[1]
-            tb['loss'].backward()
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(plain_versions())
+            stack.enter_context(ctx)
+            stack.enter_context(full_f32())
+            seen = stack.enter_context(sp.layer_readings(
+                twin.model, walked, against)) if against else None
+            loss, grads, labels = sp.step_gradient(
+                twin.model, part, step_draw(trainer.seed, 0, 'cuda'))
         launched = sum(k.launches for k in wrappers)
         check((launched == 0) == plain, f'{label} f32 step '
               f'({"plain" if plain else "kernels"}): {launched} launches')
-        return float(tb['loss'].detach()), {
-            k: p.grad.detach().clone() for k, p in twin.model.named_parameters()}
+        return loss, grads, labels, seen
+
+    def distance(g):
+        return gradient_distance(g, exact)[2]
 
     t0 = time.perf_counter()
     with full_f32():
@@ -3433,38 +3393,100 @@ def whole_step_phase(torch, trainer, cfg_file, batch, wrappers, label):
               f'plain versions in units of eps x sum|terms|: largest '
               f'{max(units):.3g}, {sum(u == 0 for u in units)} calls '
               f'bit-equal', flush=True)
-    loss_k, kernels = gradient(contextlib.nullcontext(), False)
-    loss_p, plain = gradient(plain_versions(), True)
-    del twin
-    loss_x, exact = float64_step_gradient(torch, cfg, state, part,
-                                          trainer.seed, 'cuda')
-    rule = float64_rule(kernels, plain, exact)
-    broken = {k: r for k, r in rule.items() if r[0] > r[1]}
+    branch, seen_x = sp.ReluBranch(), {}
+
+    @contextlib.contextmanager
+    def watch_exact(model):
+        with sp.layer_readings(model, walked) as seen:
+            yield
+        seen_x.update(seen)
+
+    torch.cuda.synchronize()
+    t64 = time.perf_counter()
+    loss_x, exact, rounded, labels_x = sp.float64_step_gradient(
+        cfg, state, part, trainer.seed, 'cuda',
+        context=_stacked(plain_versions(), branch), watch=watch_exact)
+    torch.cuda.synchronize()
+    t64 = time.perf_counter() - t64  # the process's first float64 kernels
+    none = contextlib.nullcontext
+    loss_k, kernels, labels_k, seen_k = gradient(none(), False, seen_x)
+    loss_p, plain, labels_p, seen_p = gradient(none(), True, seen_x)
+    del seen_x
+    check(not rounded, f'{label} float64 step: operations that round a '
+          f'float64 value to float32 {rounded}')
+    check(torch.equal(labels_k, labels_x) and torch.equal(labels_p, labels_x),
+          f'{label}: the float64 step assigns the f32 steps\' anchor labels')
+    check(abs(loss_k - loss_p) <= 1e-6 * abs(loss_p),
+          f'{label} f32 loss: kernels {loss_k} vs plain {loss_p}')
+    rule = sp.float64_rule(kernels, plain, exact)
     jumps = sorted(k for k, r in rule.items() if r[2] > 1e-3 * r[3])
-    worst = max(rule, key=lambda k: rule[k][0] / max(rule[k][1], 1e-300))
     print(f'{label} f32 step on a loader batch '
           f'({tuple(part["voxels"].shape)} voxel table): loss kernels '
-          f'{loss_k}, plain {loss_p}, float64 {loss_x}; whole gradient from '
-          f'the float64 step (relative L2): kernels '
-          f'{gradient_distance(kernels, exact)[2]:.3g}, plain '
-          f'{gradient_distance(plain, exact)[2]:.3g}; per leaf the kernels\' '
-          f'distance from it within 3 x the plain step\'s + 4 ulps: '
-          f'{len(rule) - len(broken)} of {len(rule)} leaves, the tightest '
-          f'{worst} ({rule[worst][0]:.3g} of {rule[worst][1]:.3g} allowed) '
-          f'({time.perf_counter() - t0:.1f} s)', flush=True)
+          f'{loss_k}, plain {loss_p}, float64 {loss_x}; the float64 step '
+          f'({t64:.1f} s): {len(branch.masks)} ReLUs, no float32 rounding, '
+          f'the same anchor labels; whole gradient from the float64 step (relative '
+          f'L2): kernels {distance(kernels):.3g}, plain '
+          f'{distance(plain):.3g}; all f32, kernels against the plain step: '
+          f'{rule_reading(rule)}', flush=True)
     print(f'{label}: leaves where the plain f32 step lies more than 1e-3 of '
           f'the leaf\'s largest entry from the float64 step: {len(jumps)} '
           f'{jumps[:24]}', flush=True)
-    print(f'{label}: {len(broken)} leaves break the float64 rule (read, not '
-          'held):', flush=True)
-    for k, (d_k, allowed, d_p, top) in sorted(broken.items())[:12]:
-        print(f'  {k}: kernels {d_k:.3g} from float64, allowed {allowed:.3g} '
-              f'(plain {d_p:.3g}), max|float64| {top:.3g}', flush=True)
-    check(abs(loss_k - loss_p) <= 1e-6 * abs(loss_p),
-          f'{label} f32 loss: kernels {loss_k} vs plain {loss_p}')
-    # the rule, set before its first reading, is broken by a few leaves
-    # that jump under the kernels' rounding alone (ROADMAP section 3): read
-    # and printed above, not held
+    for name, d_k, d_p in sorted(
+            ((k, r[0], r[2]) for k, r in sp.broken_leaves(rule).items()),
+            key=lambda t: -t[1] / max(rule[t[0]][1], 1e-300))[:8]:
+        print(f'  {name}: kernels {d_k:.3g} from float64, allowed '
+              f'{rule[name][1]:.3g} (plain {d_p:.3g}), max|float64| '
+              f'{rule[name][3]:.3g}', flush=True)
+    first = sp.first_parting_layer(seen_k, seen_p, walked)
+    print(f'{label} layer walk over {len(walked)} layers (sparse, 2D and the '
+          f'heads\'; largest distance from the float64 step as a share of its '
+          f'largest entry): the first layer whose kernels\' share exceeds 3 x '
+          f'the plain step\'s, outputs in forward order, gradients in '
+          f'backward order: {first}; the last sparse layer\'s output kernels '
+          f'/ plain {seen_k[sparse[-1]][0]:.3g} / {seen_p[sparse[-1]][0]:.3g}, '
+          f'the first sparse layer\'s gradient {seen_k[sparse[0]][1]:.3g} / '
+          f'{seen_p[sparse[0]][1]:.3g}', flush=True)
+
+    for name, reorder in sp.REORDERINGS:
+        _, g, _, _ = gradient(sp.summed_in_order(reorder), True)
+        print(f'{label} plain f32 step, {name}: whole gradient from the '
+              f'float64 step {distance(g):.3g}; against the plain step: '
+              f'{rule_reading(sp.float64_rule(g, plain, exact))}', flush=True)
+    _, k64, _, _ = gradient(sp.float64_batch_statistics(), False)
+    _, p64, _, _ = gradient(sp.float64_batch_statistics(), True)
+    print(f'{label} f32 step with float64 BatchNorm statistics: whole '
+          f'gradient from the float64 step kernels {distance(k64):.3g}, plain '
+          f'{distance(p64):.3g}; kernels against plain: '
+          f'{rule_reading(sp.float64_rule(k64, p64, exact))}', flush=True)
+    # the rule held where the diagnosis puts the cause: the ReLUs' kinks
+    # (tests/test_torch_cbgs_float64.py); on the float64 step's branch the
+    # f32 steps differ from it by rounding alone
+    pair, flips = [], {}
+    for plain_step in (False, True):
+        imposed = sp.ReluBranch(branch.masks)
+        pair.append(gradient(imposed, plain_step)[1])
+        flips['plain' if plain_step else 'kernels'] = imposed.flips
+    rule = sp.float64_rule(*pair, exact)
+    print(f'{label} f32 step on the float64 step\'s ReLU branch (each '
+          f'step\'s ReLU entries whose own sign differs there: {flips} of '
+          f'{sum(int(m.numel()) for m in branch.masks)}): whole gradient from '
+          f'the float64 step kernels {distance(pair[0]):.3g}, plain '
+          f'{distance(pair[1]):.3g}; kernels against plain: '
+          f'{rule_reading(rule)} ({time.perf_counter() - t0:.1f} s)',
+          flush=True)
+    check(not sp.broken_leaves(rule), f'{label} f32 step on the float64 '
+          f'step\'s ReLU branch: leaves beyond the float64 rule '
+          f'{sorted(sp.broken_leaves(rule))}')
+    del twin
+
+
+@contextlib.contextmanager
+def _stacked(*contexts):
+    """The given context managers entered in order, as one."""
+    with contextlib.ExitStack() as stack:
+        for c in contexts:
+            stack.enter_context(c)
+        yield
 
 
 def write_fork_trees(root):
@@ -3584,9 +3606,9 @@ def train_eval_from_files(torch, label, cfg_file, root, per_step, per_batch,
           f'process {build:.2f} ms; the first batch {startup:.2f} ms',
           flush=True)
 
-    # the running statistics of a short run lag the weights (a two-stage
-    # detector's proposals then blow up in eval mode): precise-BN over
-    # training batches from the tree first, as the train-to-AP gates do
+    # the running statistics of a short run lag the weights, and the eval
+    # then overflows as the reference's does (fork_data_phase): precise-BN
+    # over training batches from the tree first, as the train-to-AP gates do
     t0 = time.perf_counter()
     recalibrate_bn_stats(trainer.model, loader,
                          lambda b: device_batch(b, 'cuda'), n_batches=8)
@@ -3715,7 +3737,14 @@ def fork_data_phase(torch, wrappers, root):
     batch) and mix_data_models/pointpillars_xy.yaml from the Mix tree (1 K2
     a step; 1 K1 and 1 K2 an eval batch, held bit for bit on its first);
     then the Mix trainer in a one-process NCCL group against no group
-    (``distributed_phase``). Returns the launches of each run and the
+    (``distributed_phase``). Each evaluates after precise-BN over 8
+    training batches: after a short run the eval with the running
+    statistics gives non-finite boxes (multiframe PV-RCNN after its 24
+    steps), the outcome that tests/test_torch_eval_after_training.py
+    holds for SECOND against the JAX package's eval of the same state
+    (non-finite at the same rows: a property of the reference, not a port
+    fault; ROADMAP section 3), so precise-BN is how the phase reads a
+    finite eval, as the train-to-AP gates do. Returns the launches of each run and the
     largest kernel errors against the plain versions."""
     import logging
     import os
@@ -4043,11 +4072,13 @@ def train_cli_phase(torch, wrappers, tmp):
     ``tools.test.evaluate --eval_all`` on the same YAML with no
     ``--ckpt_dir``, which must find both checkpoints through the default
     layout and read each epoch's recall and detections as the training
-    run's own eval read them. Both runs take ``--set
+    run's own eval read them; then ``finite_boxes_held`` on the final
+    state. Both runs take ``--set
     MODEL.POST_PROCESSING.SCORE_THRESH 0.001``, so that the
     random-weight model's evals have detections to compare. The working directory is
     `tmp`, with ``tools`` linked to the repository's (the configs'
     _BASE_CONFIG_ paths). Returns the launches of the three runs."""
+    import copy
     import os
     import re
 
@@ -4091,9 +4122,13 @@ def train_cli_phase(torch, wrappers, tmp):
 
         return run
 
-    evals = []
+    evals, final = [], []
 
     def counted_eval(real_eval, model, loader, *args, **kwargs):
+        if not final:  # the training run's eval of its final state
+            post_cfg, class_names = args[:2]
+            final.append((copy.deepcopy(model), loader, post_cfg,
+                          len(class_names)))
         counted = CountedLoader(loader, per_batch)
         result, annos = real_eval(model, counted, *args, **kwargs)
         evals.append((counted.total, result, annos))
@@ -4201,6 +4236,7 @@ def train_cli_phase(torch, wrappers, tmp):
         check(same and same_annos and sum(len(a['name']) for a in want_annos),
               f'training CLI {tag}: test --eval_all reads the recall and the '
               'detections of the training run\'s eval')
+    finite_boxes_held(torch, *final[0], by_epoch['epoch_2'][2])
 
     # iterations: step end to step end within an epoch, outside the
     # window: the wait on the loader, the copy to the card, the step
@@ -4233,6 +4269,55 @@ def train_cli_phase(torch, wrappers, tmp):
           f'{test_s:.1f} s, the phase {seconds:.1f} s; launches {runs}',
           flush=True)
     return runs
+
+
+def finite_boxes_held(torch, model, loader, post_cfg, num_class, annos):
+    """The training CLI's eval of its final state (16 bf16 steps) against
+    what the diagnosis of its non-finite boxes predicts
+    (tests/test_torch_eval_after_training.py: the JAX package's eval of
+    such a state overflows at the same rows; the eval batch's own
+    BatchNorm statistics decode every box finite). Held: the kept boxes
+    of that eval, taken again here with the running statistics, are as
+    many and as many non-finite as the training run's annos hold, some
+    of them non-finite; with every BatchNorm taking each eval batch's own
+    statistics (train-mode BatchNorm, the head in eval mode) every kept
+    box is finite."""
+    from lidardetection_tpu_torch.models.detectors.post_processing import (
+        post_processing,
+    )
+    from lidardetection_tpu_torch.models.layers import MaskedBatchNorm
+    from lidardetection_tpu_torch.parallel.train_step import device_batch
+
+    def kept_boxes(own_statistics):
+        model.eval()
+        for m in model.modules():
+            if isinstance(m, MaskedBatchNorm):
+                m.train(own_statistics)
+        kept, bad = 0, 0
+        with torch.inference_mode():
+            for batch in loader:
+                preds = post_processing(model(device_batch(batch, 'cuda')),
+                                        post_cfg, num_class)
+                boxes = preds['pred_boxes'][preds['pred_mask']]
+                kept += len(boxes)
+                bad += int((~torch.isfinite(boxes).all(-1)).sum())
+        return kept, bad
+
+    kept, bad = kept_boxes(False)
+    want_bad = sum(int((~np.isfinite(a['boxes_lidar']).all(axis=1)).sum())
+                   for a in annos)
+    want_kept = sum(len(a['name']) for a in annos)
+    own_kept, own_bad = kept_boxes(True)
+    print(f'training CLI, the final state\'s eval: {kept} kept boxes, {bad} '
+          f'not finite with the running statistics (the training run\'s '
+          f'annos: {want_kept}, {want_bad}); with each eval batch\'s own '
+          f'BatchNorm statistics {own_kept} kept, {own_bad} not finite',
+          flush=True)
+    check(kept == want_kept and bad == want_bad and bad > 0,
+          'training CLI: the final state\'s eval overflows as the training '
+          'run\'s eval read it')
+    check(own_kept > 0 and own_bad == 0, 'training CLI: with the eval '
+          'batches\' own BatchNorm statistics every kept box is finite')
 
 
 MEASURE_SCENES, MEASURE_BATCH = 8, 4  # probe_rcnn_refine, ablate_approx
